@@ -1,0 +1,57 @@
+"""Workload and result records of the serving simulators (paper §IV).
+
+Workload model (paper §IV): K concurrent closed-loop clients.  Each client
+has one outstanding request at a time; when it completes (or its deadline
+expires) the client immediately issues the next, with a relative deadline
+drawn from U[D_l, D_u] and a sample drawn from the shuffled test set.
+
+The deprecated ``simulate`` shim of the JAX package is not ported yet
+(ROADMAP Queue A item 4); ``repro_torch.serving.Service`` is the entry point.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class Workload:
+    n_clients: int = 20
+    d_lo: float = 0.01
+    d_hi: float = 0.3
+    n_requests: int = 500          # total across clients
+    seed: int = 0
+    mandatory_stages: int = 1
+
+
+@dataclasses.dataclass
+class SimResult:
+    accuracy: float
+    miss_rate: float
+    mean_depth: float
+    mean_conf: float
+    overhead_frac: float
+    n_requests: int
+    per_request: list
+    makespan: float = 0.0          # simulated seconds until the last event
+    throughput: float = 0.0        # completed (non-missed) requests / second
+    # unified host-cost accounting (repro_torch.serving.runtime) ------------------
+    sched_charged: float = 0.0     # all host scheduling cost incurred
+    host_serial: float = 0.0       # the part that serialized with the device
+    host_overhead_frac: float = 0.0   # host_serial / (busy + host_serial)
+    n_dispatches: int = 0
+    presel_hits: int = 0           # pipelined dispatch: pre-selections kept
+    presel_misses: int = 0         # ... re-planned at dispatch time
+
+    def row(self):
+        return dict(accuracy=self.accuracy, miss_rate=self.miss_rate,
+                    mean_depth=self.mean_depth, overhead=self.overhead_frac,
+                    throughput=self.throughput)
+
+    def to_dict(self, *, per_request: bool = False) -> dict:
+        """All fields as a JSON-able dict (``per_request`` rows are bulky
+        and excluded unless asked for)."""
+        d = dataclasses.asdict(self)
+        if not per_request:
+            d.pop("per_request")
+        return d
+

@@ -1,0 +1,103 @@
+"""BatchPolicy — the batched extension of the core ``Policy`` contract.
+
+Contract
+--------
+``next_batch(active, now) -> Optional[(stage, [tasks])]``
+
+Everything else (``on_arrival`` / ``on_stage_done`` / ``sched_time``)
+is inherited from the single-task ``Policy`` interface, so the batched
+engine and ``simulate_batched`` drive exactly the policies the paper
+evaluates — RTDeepIoT, EDF, LCF, RR — with batch *composition* layered on
+top of each policy's dispatch preference:
+
+* the base policy still picks the **leader** (its ``next_task`` order:
+  planned-EDF for RTDeepIoT, deadline for EDF, lowest confidence for LCF,
+  the round-robin slot for RR);
+* the ``StageBatcher`` then fills the bucket with deadline-feasible
+  co-runners at the leader's stage, ordered by the base policy's
+  ``batch_rank`` — so LCF batches low-confidence tasks together while
+  EDF/RTDeepIoT batch by urgency, and *no* admission may push a member
+  past its deadline (batch WCET = profiled per-bucket stage time).
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from repro_torch.core.schedulers import Policy
+from repro_torch.serving.batch.batcher import StageBatcher
+
+
+class BatchPolicy(Policy):
+    """Policies that dispatch (stage, [tasks]) micro-batches."""
+    name = "batch-base"
+
+    def next_batch(self, active, now) -> Optional[tuple]:
+        raise NotImplementedError
+
+    def next_task(self, active, now):
+        """Single-task view (lets a BatchPolicy drive unbatched paths)."""
+        nb = self.next_batch(active, now)
+        return nb[1][0] if nb else None
+
+
+class BatchedPolicy(BatchPolicy):
+    """Adapter: any single-task ``Policy`` + ``StageBatcher`` -> BatchPolicy.
+
+    Attribute access falls through to the base policy (``sched_time``,
+    ``invocations``, ``predictor`` ...), so telemetry and the §II-E hooks
+    behave as if the base policy ran unbatched; time spent forming batches
+    is charged to the base policy's ``sched_time``.
+    """
+
+    def __init__(self, base: Policy, batcher: StageBatcher,
+                 charge_formation: bool = True):
+        # no super().__init__(): sched_time/invocations live on `base`
+        self.base = base
+        self.batcher = batcher
+        # the batched paths bill selection + batch formation to the base
+        # policy's sched_time; the unbatched shims pass False, preserving
+        # the legacy accounting where next_task time was never counted
+        self.charge_formation = charge_formation
+        self.name = f"batched-{base.name}"
+
+    def __getattr__(self, item):
+        if item == "base":          # guard: never recurse during __init__
+            raise AttributeError(item)
+        return getattr(self.base, item)
+
+    def on_arrival(self, active, task, now):
+        self.base.on_arrival(active, task, now)
+
+    def on_stage_done(self, active, task, now):
+        self.base.on_stage_done(active, task, now)
+
+    def batch_rank(self, task, now):
+        return self.base.batch_rank(task, now)
+
+    def next_task(self, active, now):
+        return self.base.next_task(active, now)
+
+    def next_batch(self, active, now) -> Optional[tuple]:
+        t0 = time.perf_counter()
+        leader = self.base.next_task(active, now)
+        if leader is None:
+            if self.charge_formation:
+                self.base.sched_time += time.perf_counter() - t0
+            return None
+        cands = self._runnable(active, now)
+        batch = self.batcher.form(leader, cands, now,
+                                  rank=lambda t: self.base.batch_rank(t, now))
+        if self.charge_formation:
+            self.base.sched_time += time.perf_counter() - t0
+        return leader.executed, batch
+
+
+def as_batch_policy(policy: Policy, time_model, max_batch: int = None,
+                    charge_formation: bool = True, dp: int = 1) -> BatchPolicy:
+    """Wrap a plain Policy for the batched engine/simulator (idempotent)."""
+    if isinstance(policy, BatchPolicy):
+        return policy
+    return BatchedPolicy(policy, StageBatcher(time_model,
+                                              max_batch=max_batch, dp=dp),
+                         charge_formation=charge_formation)

@@ -1,0 +1,464 @@
+"""EngineCore — the one serving event loop (paper Fig. 2, §II-B).
+
+admit → expire → dispatch → observe → retire, parameterized by a
+:class:`~repro_torch.serving.runtime.clock.Clock` (virtual vs wall time), an
+:class:`~repro_torch.serving.runtime.executor.Executor` (oracle tables vs real
+jitted stages) and a :class:`~repro_torch.serving.runtime.sources.RequestSource`
+(closed-loop clients vs a request stream).  The four legacy entry points
+(``simulate``, ``simulate_batched``, ``ServingEngine``,
+``BatchedServingEngine``) are thin configurations of this loop.
+
+Pipelined async dispatch (``pipeline_depth=2``): with synchronous dispatch
+the host blocks on the device, so every piece of host work — policy
+selection, §II-E hooks, submit overhead — serializes with execution.  With
+pipelining the host returns from the (asynchronous) submit immediately and
+works *inside* the device window: it pre-selects batch *N+1* from the
+tasks not in flight (re-pre-selecting when an arrival lands mid-window, so
+the choice never goes stale against admissions), and when the device frees
+the pre-selection is re-validated at true dispatch time — members must
+still be active, at the pre-selected stage, below their assigned depth,
+and the grown batch's bucket-rounded WCET must still meet every
+co-runner's deadline (the PR-1 StageBatcher invariant; the leader keeps
+the legacy dispatch-anyway singleton semantics).  The re-check also *tops
+off* the batch with newly-eligible same-stage tasks under the same
+invariant, so pipelining costs no batching opportunity.
+
+Host-cost accounting is one uniform rule: host work performed while a
+device window is open is hidden up to the window's duration; the rest
+serializes.  Synchronous dispatch never opens a window (the host is
+blocked), so every charge serializes — exactly the legacy accounting.
+
+* ``sched_charged``  — all host scheduling cost incurred (policy calls,
+  §II-E hooks, per-dispatch overhead), whether or not it serialized;
+* ``host_serial``    — the part that serialized with device execution
+  (== ``sched_charged`` for synchronous dispatch; smaller when pipelined).
+
+``policy_cost`` replaces *measured* policy wall time with a deterministic
+per-invocation charge — benchmarks compare pipelined vs synchronous
+dispatch without host-timing jitter in the virtual timeline.
+"""
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+
+from repro_torch.core.simulator import SimResult
+from repro_torch.serving.batch.batcher import StageBatcher
+from repro_torch.serving.batch.policy import as_batch_policy
+
+_EPS = 1e-12
+
+
+class TableRecorder:
+    """Aggregates retirements into the simulators' ``SimResult``."""
+
+    def __init__(self, conf_table, correct_table):
+        self.conf_table = conf_table
+        self.correct_table = correct_table
+        self.finished: list = []
+
+    def on_retire(self, task, now: float, rejected: bool = False) -> None:
+        depth = task.executed
+        # a request fails iff *no* stage completed before its deadline —
+        # Task.executed only advances for in-time completions
+        missed = depth == 0
+        correct = (not missed) and bool(self.correct_table[task.sample,
+                                                           depth - 1])
+        conf = float(self.conf_table[task.sample, depth - 1]) if depth else 0.0
+        self.finished.append(dict(tid=task.tid, missed=missed, correct=correct,
+                                  depth=depth, conf=conf, client=task.client,
+                                  sample=task.sample, deadline=task.deadline,
+                                  arrival=task.arrival, rejected=rejected))
+
+    def result(self, core) -> SimResult:
+        finished = self.finished
+        n = len(finished)
+        ok = [f for f in finished if not f["missed"]]
+        acc = float(np.mean([f["correct"] for f in finished])) if n else 0.0
+        miss = float(np.mean([f["missed"] for f in finished])) if n else 0.0
+        # guard on the non-missed subset, not n: an all-miss run must
+        # report 0.0, not NaN (which would poison the JSON exports)
+        depth = float(np.mean([f["depth"] for f in ok])) if ok else 0.0
+        conf = float(np.mean([f["conf"] for f in ok])) if ok else 0.0
+        busy = core.executor.total_busy
+        sched = core.policy.sched_time
+        denom = busy + sched
+        hdenom = busy + core.host_serial
+        ok = sum(1 for f in finished if not f["missed"])
+        makespan = core.makespan
+        return SimResult(
+            accuracy=acc, miss_rate=miss, mean_depth=depth, mean_conf=conf,
+            overhead_frac=sched / denom if denom else 0.0,
+            n_requests=n, per_request=finished, makespan=makespan,
+            throughput=ok / makespan if makespan > 0 else 0.0,
+            sched_charged=core.sched_charged, host_serial=core.host_serial,
+            host_overhead_frac=core.host_serial / hdenom if hdenom else 0.0,
+            n_dispatches=core.n_dispatches, presel_hits=core.presel_hits,
+            presel_misses=core.presel_misses)
+
+
+class ResponseRecorder:
+    """Builds the wall-clock engines' ``Response`` list from retirements."""
+
+    def __init__(self, executor, responses: list):
+        from repro_torch.serving.engine import Response   # local: keeps layering
+        self._Response = Response
+        self.executor = executor
+        self.responses = responses
+
+    def on_retire(self, task, now: float, rejected: bool = False) -> None:
+        req, _h, result = self.executor.pop_state(task)
+        if result is None:
+            self.responses.append(self._Response(
+                task.sample, None, 0.0, 0, True, now - req.arrival,
+                task.deadline))
+        else:
+            pred, conf = result
+            self.responses.append(self._Response(
+                task.sample, int(pred), float(conf), task.executed, False,
+                now - req.arrival, task.deadline))
+
+
+class EngineCore:
+    def __init__(self, policy, clock, executor, source, recorder, *,
+                 admission=None, pipeline_depth: int = 1,
+                 dispatch_overhead: float = 0.0, policy_cost=None,
+                 max_batch: int = None, tracer=None):
+        self.policy = policy               # a BatchPolicy (see as_batch_policy)
+        self.clock = clock
+        self.executor = executor
+        self.source = source
+        self.recorder = recorder
+        # optional obs hook (repro_torch.serving.obs.Tracer) — passive: records
+        # engine-computed timestamps only, never charges host time, so the
+        # virtual timeline is identical with or without it
+        self.tracer = tracer
+        # optional per-stage observation hook (Service streams anytime
+        # exits through it); legacy recorders don't define it
+        self._on_stage = getattr(recorder, "on_stage", None)
+        self.admission = admission
+        self.pipeline_depth = pipeline_depth
+        self.dispatch_overhead = dispatch_overhead
+        self.policy_cost = policy_cost
+        batcher = getattr(policy, "batcher", None)
+        self.max_batch = max_batch if max_batch is not None else \
+            (batcher.max_batch if batcher is not None else 1)
+        # pipelined re-validation re-forms batches through a StageBatcher
+        # (one implementation of the deadline invariant); custom policies
+        # without one get a batcher over the executor's time model
+        if batcher is None:
+            tm = getattr(executor, "time_model", None)
+            batcher = StageBatcher(tm, max_batch=self.max_batch,
+                                   dp=getattr(executor, "dp", 1)) \
+                if tm is not None else None
+        self._batcher = batcher
+        # telemetry -----------------------------------------------------
+        self.sched_charged = 0.0
+        self.host_serial = 0.0
+        self.n_dispatches = 0
+        self.presel_hits = 0
+        self.presel_misses = 0
+        self.makespan = 0.0
+        self._active: list = []
+        self._presel = None                # (stage, batch) pre-selection
+        self._overlap_left = 0.0           # hideable host seconds, all windows
+        self._win_overlap = []             # per open window, oldest first
+        self._pullins: list = []           # cancel-after-admission requests
+
+    # ------------------------------------------------------------------
+    def _cost(self, measured: float) -> float:
+        return measured if self.policy_cost is None else self.policy_cost
+
+    def _account(self, cost: float) -> None:
+        """One accounting rule: host work is hidden by the open device
+        window(s) (pipelined mode keeps ``_overlap_left`` > 0 while batches
+        are in flight), anything beyond it serializes with execution.
+        With several windows enqueued (``pipeline_depth >= 3``) the budget
+        drains oldest-window-first — host work happens during the window
+        that is actually running."""
+        hidden = min(cost, self._overlap_left)
+        self._overlap_left -= hidden
+        left = hidden
+        for i in range(len(self._win_overlap)):
+            if left <= 0.0:
+                break
+            take = min(left, self._win_overlap[i])
+            self._win_overlap[i] -= take     # entry stays (one per window)
+            left -= take
+        serial = cost - hidden
+        self.sched_charged += cost
+        self.host_serial += serial
+        self.clock.charge(serial)
+
+    def _alive(self) -> bool:
+        if self.clock.realtime:
+            return bool(self._active)
+        return any(t.executed < t.assigned_depth for t in self._active)
+
+    def _retire(self, task, now: float, rejected: bool = False) -> None:
+        if task in self._active:
+            self._active.remove(task)
+        self.recorder.on_retire(task, now, rejected)
+        self.source.on_retire(task, now)
+
+    def _expire(self, now: float) -> None:
+        for t in list(self._active):
+            if t.deadline <= now:
+                self._retire(t, now)
+
+    # -- cancellation after admission ----------------------------------
+    def request_pullin(self, task) -> None:
+        """Thread-safe (GIL append) request to shed ``task``'s remaining
+        *optional* stages: its depth target is pulled in to the mandatory
+        part already owed, and once nothing mandatory remains the task
+        retires immediately with its deepest in-time exit — the paper's
+        imprecise-computation cancel, applied live."""
+        self._pullins.append(task)
+
+    def _apply_pullins(self, now: float) -> None:
+        inflight = {id(t) for t in self.executor.running_tasks()}
+        while self._pullins:
+            t = self._pullins.pop()
+            if t not in self._active:
+                continue                   # already retired — nothing to shed
+            cap = max(t.mandatory, t.executed)
+            t.depth_cap = cap if t.depth_cap is None else min(t.depth_cap, cap)
+            t.assigned_depth = max(t.executed, min(t.assigned_depth, cap))
+            if self.tracer is not None:
+                self.tracer.on_pullin(t, now, cap)
+            # an in-flight member finishes its committed stage first (§II-B
+            # non-preemption); _complete retires it via the depth check
+            if t.executed >= cap and id(t) not in inflight:
+                self._retire(t, now)
+
+    # -- dispatch ------------------------------------------------------
+    def _revalidate(self, presel, now: float):
+        """Feasibility re-check of a pre-selected batch at true dispatch
+        time: if the leader still stands, the batch is re-FORMED around it
+        by the StageBatcher — the single implementation of the PR-1
+        deadline invariant — over everything now eligible, so surviving
+        co-runners are re-admitted and newly-eligible same-stage tasks top
+        the batch off.  Returns None when the leader no longer stands and
+        the policy must run again."""
+        stage, batch = presel
+        leader = batch[0]
+        inflight = {id(t) for t in self.executor.running_tasks()}
+        if not (leader in self._active and leader.executed == stage
+                and leader.executed < leader.assigned_depth
+                and leader.deadline > now and id(leader) not in inflight):
+            return None
+        if self._batcher is None:
+            return stage, [leader]
+        cands = [t for t in self._active
+                 if t.executed == stage and t.executed < t.assigned_depth
+                 and t.deadline > now and id(t) not in inflight]
+        return stage, self._batcher.form(
+            leader, cands, now, rank=lambda t: self.policy.batch_rank(t, now))
+
+    def _preselect(self, now: float) -> None:
+        """Pick the next batch while the device is busy — host work inside
+        the open window, hidden by ``_account`` up to the batch duration."""
+        inflight = {id(t) for t in self.executor.running_tasks()}
+        cands = [t for t in self._active if id(t) not in inflight]
+        w0 = time.perf_counter()
+        nb = self.policy.next_batch(cands, now)
+        self._account(self._cost(time.perf_counter() - w0))
+        self._presel = None if nb is None or not nb[1] else (nb[0], nb[1])
+
+    def _dispatch(self, now: float) -> bool:
+        nb = None
+        if self._presel is not None:
+            presel_tids = [t.tid for t in self._presel[1]] \
+                if self.tracer is not None else None
+            nb = self._revalidate(self._presel, now)
+            self._presel = None
+            if nb is not None:
+                self.presel_hits += 1
+                if presel_tids is not None:
+                    final_tids = [t.tid for t in nb[1]]
+                    if final_tids != presel_tids:
+                        self.tracer.on_topoff(nb[0], presel_tids,
+                                              final_tids, now)
+            else:
+                self.presel_misses += 1
+        if nb is None:
+            # in-flight members (possible while enqueueing extra windows at
+            # pipeline_depth >= 3) are never candidates for a fresh pick
+            inflight = {id(t) for t in self.executor.running_tasks()}
+            cands = [t for t in self._active if id(t) not in inflight] \
+                if inflight else self._active
+            w0 = time.perf_counter()
+            nb = self.policy.next_batch(cands, now)
+            self._account(self._cost(time.perf_counter() - w0))
+        if nb is None or not nb[1]:
+            return False
+        self._account(self.dispatch_overhead)
+        stage, batch = nb
+        now = self.clock.now()        # charges may have advanced virtual time
+        self.executor.submit(stage, batch, now)
+        self.n_dispatches += 1
+        if self.tracer is not None:
+            self.tracer.on_dispatch(stage, batch, now,
+                                    self.executor.wcet(stage, len(batch)))
+        if self.pipeline_depth >= 2:
+            # async host: the submit returned without blocking — everything
+            # the host does until the window closes can hide inside it
+            # (windows stack when several batches are enqueued)
+            w = self.executor.wcet(stage, len(batch))
+            self._overlap_left += w
+            self._win_overlap.append(w)
+            self._preselect(now)
+        return True
+
+    def _complete(self) -> None:
+        stage, batch = self.executor.complete(self.clock)
+        if self.tracer is not None:
+            self.tracer.on_window_close(stage, batch, self.clock.now())
+        # the oldest window closed: drop its unused overlap budget; later
+        # still-open windows keep theirs (empty list -> 0.0, the legacy
+        # single-window behavior)
+        if self._win_overlap:
+            self._win_overlap.pop(0)
+        self._overlap_left = float(sum(self._win_overlap))
+        for k, t in enumerate(batch):
+            now = self.clock.now()
+            if t.deadline >= now - _EPS:          # stage finished in time
+                t.executed += 1
+                t.confidences.append(self.executor.commit(t, k))
+                if self._on_stage is not None:
+                    self._on_stage(t, now)
+                if self.tracer is not None:
+                    self.tracer.on_stage_exit(t, now)
+                w0 = time.perf_counter()
+                self.policy.on_stage_done(self._active, t, now)
+                self._account(self._cost(time.perf_counter() - w0))
+        now = self.clock.now()
+        for t in batch:
+            if t in self._active and (t.executed >= t.assigned_depth
+                                      or t.deadline <= now):
+                self._retire(t, now)
+
+    def _admit(self, now: float) -> None:
+        if self.source.next_time() > now + _EPS:
+            return
+        task = self.source.pop(now)
+        if task is None:
+            return
+        tr = self.tracer
+        if tr is not None:
+            tr.on_admit(task, now, len(self._active))
+        if self.admission is not None:
+            dec = self.admission.apply(self._active, task, now)
+            if tr is not None:
+                tr.on_admission(task, now, dec)
+            if not dec.admitted:
+                # rejecting is a scheduling decision, not an accounting
+                # trick: the request counts as a miss and frees its client
+                self._retire(task, now, rejected=True)
+                return
+        elif tr is not None:
+            tr.on_admission(task, now, None)
+        self._active.append(task)
+        w0 = time.perf_counter()
+        self.policy.on_arrival(self._active, task, now)
+        self._account(self._cost(time.perf_counter() - w0))
+        if self.pipeline_depth >= 2 and self.executor.busy:
+            # refresh the pre-selection against the admission (and its
+            # replan) — more host work inside the still-open window
+            self._preselect(now)
+
+    # ------------------------------------------------------------------
+    def run(self):
+        clock, ex, src = self.clock, self.executor, self.source
+        if clock.realtime:
+            clock.start()
+        while src.has_pending() or ex.busy or self._alive():
+            now = clock.now()
+            if self._pullins:
+                self._apply_pullins(now)
+            if clock.realtime:
+                # wall clock: drain everything that has arrived before the
+                # dispatch decision (legacy engine order — the policy must
+                # see the whole backlog).  The virtual loop instead admits
+                # one event per iteration, exactly like the legacy
+                # simulators (same-instant events interleave with dispatch
+                # attempts, which golden parity pins down).
+                while src.has_pending() and src.next_time() <= now + _EPS:
+                    self._admit(now)
+            if not ex.busy:
+                self._expire(now)
+                self._dispatch(now)
+            elif self.pipeline_depth >= 3 and getattr(ex, "accepting", False):
+                # deep pipeline: stack further device windows behind the
+                # running one so the device never drains while the host
+                # works; an executor without an `accepting` property keeps
+                # the single-in-flight contract
+                self._dispatch(now)
+            t_arr = src.next_time()
+            t_fin = ex.finish_time() if ex.busy else math.inf
+            if ex.busy and t_fin is None:
+                # wall-clock device: only blocking reveals completion.  A
+                # pipelined host admits whatever already arrived before it
+                # blocks (triggering a pre-selection refresh inside the
+                # open window); the synchronous engine keeps the legacy
+                # order — arrivals are admitted only between executions.
+                if self.pipeline_depth >= 2:
+                    while src.has_pending() \
+                            and src.next_time() <= clock.now() + _EPS:
+                        self._admit(clock.now())
+                self._complete()
+                continue
+            if not math.isfinite(min(t_arr, t_fin)):
+                if clock.realtime and self._active:
+                    clock.advance_to(now + 0.0005)   # poll deadline expiry
+                    continue
+                break
+            if t_fin <= t_arr:
+                self._complete()
+            else:
+                clock.advance_to(t_arr)
+                if not clock.realtime:
+                    self._admit(clock.now())
+        # drain: the simulation ended with tasks still active — they retire
+        # at their deadlines, which extends the makespan accordingly
+        now = clock.now()
+        makespan = now
+        for t in list(self._active):
+            tend = max(now, t.deadline)
+            makespan = max(makespan, tend)
+            self._retire(t, tend)
+        self.makespan = makespan
+        return self.recorder
+
+
+def simulate_runtime(policy, workload, time_model, conf_table, correct_table,
+                     *, charge_overhead: bool = False,
+                     dispatch_overhead: float = 0.0, admission=None,
+                     max_batch: int = None, pipeline_depth: int = 1,
+                     policy_cost=None) -> SimResult:
+    """Discrete-event run of the unified core over oracle tables.
+
+    ``simulate`` (unbatched: single-bucket time model, ``max_batch=1``) and
+    ``simulate_batched`` are this with ``pipeline_depth=1``; pipelined
+    async dispatch and deterministic host-cost models are runtime-only.
+    """
+    from repro_torch.serving.runtime.clock import VirtualClock
+    from repro_torch.serving.runtime.executor import OracleExecutor
+    from repro_torch.serving.runtime.sources import ClosedLoopSource
+
+    pol = as_batch_policy(policy, time_model, max_batch=max_batch)
+    core = EngineCore(
+        pol, VirtualClock(charge_overhead=charge_overhead),
+        OracleExecutor(time_model, conf_table,
+                       max_inflight=max(1, pipeline_depth - 1)),
+        ClosedLoopSource(workload, conf_table.shape[0],
+                         time_model.single_times()),
+        TableRecorder(conf_table, correct_table),
+        admission=admission, pipeline_depth=pipeline_depth,
+        dispatch_overhead=dispatch_overhead, policy_cost=policy_cost,
+        max_batch=min(max_batch or time_model.max_batch,
+                      time_model.max_batch))
+    recorder = core.run()
+    return recorder.result(core)

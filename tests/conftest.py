@@ -12,6 +12,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "wallclock: real-time tests (threads, sleeps, live "
         "clocks) — the deflake CI leg repeats these 20x")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one (pytest -m gpu)")
 
 
 def pytest_addoption(parser):
