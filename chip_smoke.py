@@ -4,23 +4,46 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. device  — require a CUDA device; print its name, count, power limit and
-             the fp32 matmul precision (TF32 is switched off);
-2. build   — build the CUDA kernels from the sources in this checkout;
-3. kernel  — hold each kernel against its plain PyTorch version on the card:
-             the serving path's shapes, a ragged several-slab vocab, the
-             qwen3-4b exit head and exact ties;
-4. timing  — CUDA-event times of kernel and plain version beside the bound;
-5. serve   — ``Service`` -> ``device-kernel`` on the anytime classifier at
-             full width (random weights from seed 0), 120 requests from 8
-             clients on the wall clock with two stacked device windows, with
-             a check that every stage dispatch went through the exit kernel;
-6. report  — one ``{"kernels": [...]}`` line, then the result line.
+1. device   — require a CUDA device; print its name, count, power limit and
+              the fp32 matmul precision (TF32 is switched off);
+2. build    — build the CUDA kernels from the sources in this checkout, one
+              ``nvcc`` per source, all started together;
+3. kernel   — hold each kernel against its plain PyTorch version on the
+              card: the exit kernel at the classifier path's shapes, a
+              ragged several-slab vocab, the qwen3-4b exit head in fp32 and
+              bf16 and exact ties; the decode-attention kernel at the decode
+              path's shapes in bf16 and fp32 with ragged positions,
+              unwritten slots, a ring, a window and a row with no valid slot;
+4. timing   — CUDA-event times of each kernel and its plain version beside
+              the bound, and of ``scaled_dot_product_attention`` as the
+              decode kernel's library yardstick;
+5. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
+              full width (random weights from seed 0), 120 requests from 8
+              clients on the wall clock with two stacked device windows, with
+              a check that every stage dispatch went through the exit kernel;
+6. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
+              at full width (bf16, random weights from seed 0, 36 layers in
+              3 stages): a pool of 16 sequences warmed by batched decode
+              steps, the kernel route against the plain route per stage
+              (bf16, and elementwise on fp32 copies),
+              stage WCETs per batch bucket, then 96 one-token requests from 8
+              clients over two length buckets, with a check that every
+              stage dispatch launched the decode kernel once per layer and
+              the exit kernel once;
+7. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
+              speculation, 24 tokens; then its components again at a
+              confidence target that mixes depths, with a check that the
+              discarded speculative depths left the committed cache
+              unwritten;
+8. report   — one ``{"kernels": [...]}`` line, then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import io
 import json
 import pathlib
 import subprocess
@@ -32,15 +55,15 @@ import torch
 
 SRC = pathlib.Path(__file__).resolve().parent / "src"
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores; the kernels here run fp32 on the CUDA cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-
 CONF_ATOL = 1e-5     # the JAX package's own kernel tests: conf 1e-5,
 STAT_ATOL = 1e-4     # max_logit / lse 1e-4, pred exact
+# decode attention: tests/test_kernels.py's tolerance (atol = rtol)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 QWEN3_4B_HEAD = (8, 2560, 151936)   # rows, d_model, vocab of qwen3-4b
+QWEN3_4B_ATTN = (32, 8, 128)        # query heads, KV heads, head dim
+BATCH_BUCKETS = (1, 2, 4, 8)
+LEN_BUCKETS = (256, 1024)           # the decode path's KV slot counts
 
 
 def _import_port():
@@ -51,7 +74,7 @@ def _import_port():
         sys.path.insert(0, str(SRC))
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,21 +89,46 @@ def phase_device() -> str:
     print(f"[device] float32 matmul precision: "
           f"{torch.get_float32_matmul_precision()}, "
           f"matmul tf32 {torch.backends.cuda.matmul.allow_tf32}")
-    return name
+    return name, smi.splitlines()[0]
+
+
+def _ptxas_summary(log: str) -> str:
+    """ptxas's -v report of one library in a line: the kernels compiled,
+    their register range, the most shared memory and any spills."""
+    regs, smem, spills = [], [0], []
+    for line in log.splitlines():
+        if "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+            if "smem" in line:
+                smem.append(int(line.split("bytes smem")[0].split()[-1]))
+        elif "spill stores" in line:
+            spills += [int(part.split()[0]) for part in line.split(",")
+                       if "spill" in part]
+    if not regs:
+        return "already built"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"up to {max(smem)} bytes static smem, "
+            f"{'no spills' if not any(spills) else f'spills {spills}'}")
 
 
 def phase_build() -> None:
-    from repro_torch.kernels.exit_confidence import ops
+    """Build every kernel library at once (one nvcc per source)."""
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.exit_confidence import ops as exit_ops
     t0 = time.perf_counter()
-    _lib, log = ops.load_library()
-    print(f"[build] exit_confidence: {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {name: pool.submit(mod.load_library) for name, mod in
+                (("exit_confidence", exit_ops),
+                 ("decode_attention", attn_ops))}
+        logs = {name: job.result()[1] for name, job in jobs.items()}
+    print(f"[build] both kernels: {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        print(f"[build] {name}: {_ptxas_summary(log)}")
 
 
-def _exit_inputs(n, d, v, seed, *, ties=()):
-    """h (n, d), scale (d,), w_out (d, v) on the card, from ``seed``.
+def _exit_inputs(n, d, v, seed, *, ties=(), dtype=torch.float32):
+    """h (n, d), scale (d,), w_out (d, v) on the card in ``dtype``, from
+    ``seed``.
 
     ``ties``: column indices that get the same one-hot column e_0 of
     ``w_out`` with h[:, 0] raised, so they share the largest logit exactly
@@ -96,24 +144,47 @@ def _exit_inputs(n, d, v, seed, *, ties=()):
         for c in ties:
             w[:, c] = 0.0
             w[0, c] = 1.0
-    return h.cuda(), scale.cuda(), w.cuda()
+    return tuple(t.to("cuda", dtype) for t in (h, scale, w))
 
 
 def check_exit_confidence(verbose: bool = True) -> float:
     """Kernel against plain version at the path's shapes, a ragged vocab,
-    the qwen3-4b head and exact ties.  Returns the largest abs error of
+    the qwen3-4b head (fp32 at N 8, bf16 at every batch bucket, as the
+    decode path launches it) and exact ties.  Returns the largest abs error of
     conf / max_logit / lse; raises on any disagreement."""
     from repro_torch.kernels.exit_confidence.ops import exit_confidence
     from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
-    cases = [(f"path N={n}", (n, 128, 10), {}) for n in (1, 2, 4, 8)]
+    d, v = QWEN3_4B_HEAD[1:]
+    cases = [(f"path N={n}", (n, 128, 10), {}) for n in BATCH_BUCKETS]
     cases += [("ragged N=13 V=1000", (13, 128, 1000), {}),
-              ("qwen3-4b head", QWEN3_4B_HEAD, {}),
+              ("qwen3-4b head", QWEN3_4B_HEAD, {})]
+    # the decode path's batch buckets at the qwen3-4b head, rows of one
+    # bf16 input (one 0.78 GB w_out serves them all)
+    cases += [(f"qwen3-4b head bf16 N={n}", (n, d, v),
+               {"dtype": torch.bfloat16, "head_rows": True})
+              for n in sorted(BATCH_BUCKETS, reverse=True)]
+    cases += [("ragged bf16 N=13 V=1000", (13, 128, 1000),
+               {"dtype": torch.bfloat16}),
+              ("ragged bf16 N=3 V=1001 (no 16-byte rows)", (3, 128, 1001),
+               {"dtype": torch.bfloat16}),
               ("ties in slab + across", (13, 128, 1000),
                {"ties": (100, 200, 700)}),
-              ("ties across slabs", (13, 128, 1000), {"ties": (300, 900)})]
+              ("ties across slabs", (13, 128, 1000), {"ties": (300, 900)}),
+              ("ties bf16 in slab", (13, 128, 1000),
+               {"ties": (100, 200, 700), "dtype": torch.bfloat16}),
+              ("ties bf16 across slabs", (13, 128, 3000),
+               {"ties": (300, 1500, 2900), "dtype": torch.bfloat16})]
     worst = 0.0
+    head = None
     for i, (label, (n, d, v), kw) in enumerate(cases):
-        h, scale, w = _exit_inputs(n, d, v, seed=i, **kw)
+        if kw.get("head_rows"):
+            if head is None:
+                head = _exit_inputs(max(BATCH_BUCKETS), d, v, seed=i,
+                                    dtype=kw["dtype"])
+            h, scale, w = head
+            h = h[:n].contiguous()
+        else:
+            h, scale, w = _exit_inputs(n, d, v, seed=i, **kw)
         got = exit_confidence(h, scale, w)
         torch.cuda.synchronize()
         want = exit_confidence_ref(h, scale, w)
@@ -138,6 +209,109 @@ def check_exit_confidence(verbose: bool = True) -> float:
     return worst
 
 
+def _within(got, want, tol):
+    """``|got - want| <= tol + tol * |want|`` everywhere (the form of the
+    JAX package's kernel tests), and the largest abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return bool((err <= tol + tol * want.abs()).all()), float(err.max())
+
+
+def _within_rows(got, want, tol):
+    """Per batch row, ``max |got - want| <= tol + tol * max |want|``: the
+    bf16 tolerance taken against each row's scale.  A stage is 12 layers of
+    bf16 arithmetic whose residual sums cancel, so an element's error
+    follows the size of its summands, not of the result.  Returns (ok,
+    largest abs error, elements outside the elementwise bound)."""
+    got, want = got.float().flatten(1), want.float().flatten(1)
+    err = (got - want).abs()
+    scale = want.abs().amax(1)
+    ok = bool((err.amax(1) <= tol + tol * scale).all())
+    n_out = int((err > tol + tol * want.abs()).sum())
+    return ok, float(err.max()), n_out
+
+
+def _decode_inputs(B, S, dtype, seed, *, heads=QWEN3_4B_ATTN, ring=False,
+                   empty_row=False):
+    """q, k, v, slot_pos, cur_pos on the card, from ``seed``.
+
+    Row b holds positions 0..len_b-1 (ragged lengths in [1, S], the other
+    slots unwritten, -1) and decodes at cur_pos = len_b - 1.  ``ring``: row
+    b has run P_b in (S, 2S] tokens through S slots, so slot j holds
+    position j + S where j < P_b - S (non-monotonic slot_pos), at cur_pos
+    P_b - 1.  ``empty_row``: row 0 has no written slot."""
+    H, KV, dh = heads
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, dh, generator=g)
+    k = torch.randn(B, KV, S, dh, generator=g)
+    v = torch.randn(B, KV, S, dh, generator=g)
+    slots = torch.arange(S, dtype=torch.int32).expand(B, S).clone()
+    if ring:
+        P = torch.randint(S + 1, 2 * S + 1, (B,), generator=g,
+                          dtype=torch.int32)
+        slot_pos = torch.where(slots < (P - S)[:, None], slots + S, slots)
+        cur = P - 1
+    else:
+        lens = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32)
+        slot_pos = torch.where(slots < lens[:, None], slots, -1)
+        cur = lens - 1
+    if empty_row:
+        slot_pos[0] = -1
+    return (q.to("cuda", dtype), k.to("cuda", dtype), v.to("cuda", dtype),
+            slot_pos.to(torch.int32).cuda().contiguous(),
+            cur.to(torch.int32).cuda())
+
+
+def check_decode_attention(verbose: bool = True) -> float:
+    """Kernel against plain version at the decode path's shapes (B 1, 2,
+    4, 8; qwen3-4b's heads; both length buckets) in bf16 and fp32, with
+    ragged positions and unwritten slots, a ring, window 8 and a row with
+    no valid slot, plus smaller head dims and GQA ratios.  Returns the
+    largest abs error; raises on any disagreement."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    cases = [(f"path B={b} S={s}", b, s, {}, {})
+             for s in LEN_BUCKETS for b in BATCH_BUCKETS]
+    cases += [("ring B=4 S=256", 4, 256, {"ring": True}, {}),
+              ("window 8 B=8 S=1024", 8, 1024, {}, {"window": 8}),
+              ("ring + window 8 B=2 S=256", 2, 256, {"ring": True},
+               {"window": 8}),
+              ("empty row B=4 S=256", 4, 256, {"empty_row": True}, {}),
+              ("S=1000 (not a chunk multiple)", 3, 1000, {}, {}),
+              ("H4 KV2 dh64 (reduced qwen3)", 4, 40,
+               {"heads": (4, 2, 64)}, {}),
+              ("H6 KV1 dh64", 3, 33, {"heads": (6, 1, 64)}, {}),
+              ("H8 KV8 dh16", 1, 64, {"heads": (8, 8, 16)}, {}),
+              ("H4 KV2 dh32", 2, 40, {"heads": (4, 2, 32)}, {}),
+              ("H16 KV1 dh128 (two head groups)", 2, 300,
+               {"heads": (16, 1, 128)}, {})]
+    worst = 0.0
+    i = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOL[dtype]
+        for label, B, S, mk, kw in cases:
+            i += 1
+            args = _decode_inputs(B, S, dtype, seed=i, **mk)
+            got = decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = decode_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            ok, err = _within(got, want, tol)
+            if mk.get("empty_row") and bool(got[0].ne(0).any()):
+                raise AssertionError(f"decode_attention {label}: the row "
+                                     "with no valid slot is not all zeros")
+            if verbose:
+                print(f"[kernel] decode_attention {label} "
+                      f"{str(dtype).removeprefix('torch.')}: max abs err "
+                      f"{err:.3e} (tol {tol:g})")
+            if not ok or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"decode_attention {label} {dtype}: "
+                                     f"kernel disagrees with the plain "
+                                     f"version (max abs err {err})")
+            worst = max(worst, err)
+    return worst
+
+
 def _time_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -151,33 +325,76 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _exit_bound(n, d, v):
-    """Least time for the function: each input read once and each output
-    written once over HBM, or its 2 N d V fp32 FLOPs over the fp32 peak."""
-    bytes_ = 4 * (n * d + d + d * v) + 4 * 4 * n
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * n * d * v / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def _sdpa(q, k, v, slot_pos, cur_pos):
+    """The library call that computes decode attention's function: one
+    ``scaled_dot_product_attention`` with the same per-row mask and GQA
+    (timed here as a yardstick; the port never calls it)."""
+    mask = ((slot_pos >= 0) & (slot_pos <= cur_pos[:, None]))[:, None, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def _time_pair(kernel, plain, iters):
+    """Plain, kernel, kernel, plain: the lower of each pair (ms)."""
+    p1 = _time_ms(plain, iters)
+    k1 = _time_ms(kernel, iters)
+    k2 = _time_ms(kernel, iters)
+    p2 = _time_ms(plain, iters)
+    return (k1, k2), (p1, p2)
 
 
 def phase_timing() -> dict:
+    """Kernel, plain version (and library call) timed in turns; each beside
+    its bound from ``repro_torch.kernels.bounds`` (HBM bytes or fp32
+    flops at the published H100 SXM peaks)."""
+    from repro_torch.kernels import bounds
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.exit_confidence.ops import exit_confidence
     from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
     out = {}
-    for label, shape, iters in (("path", (8, 128, 10), 2000),
-                                ("qwen3-4b head", QWEN3_4B_HEAD, 50)):
-        h, scale, w = _exit_inputs(*shape, seed=100)
-        plain = _time_ms(lambda: exit_confidence_ref(h, scale, w), iters)
-        kernel = _time_ms(lambda: exit_confidence(h, scale, w), iters)
-        kernel2 = _time_ms(lambda: exit_confidence(h, scale, w), iters)
-        plain2 = _time_ms(lambda: exit_confidence_ref(h, scale, w), iters)
-        bound, by = _exit_bound(*shape)
-        out[label] = dict(shape=shape, ms=min(kernel, kernel2),
-                          plain_ms=min(plain, plain2), bound_ms=bound,
-                          bound_by=by)
+    for label, shape, dtype, iters in (
+            ("path", (8, 128, 10), torch.float32, 2000),
+            ("qwen3-4b head", QWEN3_4B_HEAD, torch.float32, 50),
+            ("qwen3-4b head bf16", QWEN3_4B_HEAD, torch.bfloat16, 50)):
+        h, scale, w = _exit_inputs(*shape, seed=100, dtype=dtype)
+        ks, ps = _time_pair(lambda: exit_confidence(h, scale, w),
+                            lambda: exit_confidence_ref(h, scale, w), iters)
+        bound, by = bounds.exit_confidence(*shape,
+                                           itemsize=h.element_size())
+        out[label] = dict(shape=list(shape), dtype=str(dtype), ms=min(ks),
+                          plain_ms=min(ps), bound_ms=bound, bound_by=by,
+                          library_ms=None)
         print(f"[timing] exit_confidence {label} N,d,V={shape}: kernel "
-              f"{kernel:.5f}/{kernel2:.5f} ms, plain {plain:.5f}/{plain2:.5f} "
+              f"{ks[0]:.5f}/{ks[1]:.5f} ms, plain {ps[0]:.5f}/{ps[1]:.5f} "
               f"ms, bound {bound:.6f} ms ({by})")
+        del h, scale, w
+    for S in (1024, 4096):
+        B = 8
+        g = torch.Generator().manual_seed(200 + S)
+        H, KV, dh = QWEN3_4B_ATTN
+        q, k, v = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+                   for shape in ((B, H, dh), (B, KV, S, dh), (B, KV, S, dh)))
+        slot_pos = torch.arange(S, dtype=torch.int32,
+                                device="cuda").expand(B, S).contiguous()
+        cur = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+        args = (q, k, v, slot_pos, cur)
+        ks, ps = _time_pair(lambda: decode_attention(*args),
+                            lambda: decode_attention_ref(*args), 200)
+        lib = [_time_ms(lambda: _sdpa(*args), 200) for _ in range(2)]
+        lib_err = float((_sdpa(*args).float()
+                         - decode_attention(*args).float()).abs().max())
+        # every slot is valid here, so the function needs the whole cache
+        bound, by = bounds.decode_attention(B, H, KV, S, dh, itemsize=2)
+        out[f"decode S={S}"] = dict(
+            shape=[B, H, KV, S, dh], dtype="torch.bfloat16", ms=min(ks),
+            plain_ms=min(ps), bound_ms=bound, bound_by=by,
+            library_ms=min(lib))
+        print(f"[timing] decode_attention B={B} H={H} KV={KV} S={S} "
+              f"dh={dh} bf16: kernel {ks[0]:.5f}/{ks[1]:.5f} ms, plain "
+              f"{ps[0]:.5f}/{ps[1]:.5f} ms, sdpa {lib[0]:.5f}/{lib[1]:.5f} "
+              f"ms (max abs diff to the kernel {lib_err:.3e}), bound "
+              f"{bound:.6f} ms ({by})")
     return out
 
 
@@ -263,26 +480,461 @@ def phase_serve() -> dict:
     return dict(launches=launches, n_dispatches=res.n_dispatches)
 
 
+def _qwen3_pool(cfg, params):
+    """16 sequences warmed by batched decode steps: eight of lengths in
+    [32, 240] in 256-slot caches, eight in [300, 1000] in 1024-slot caches.
+
+    Each group of eight runs through all stages one position at a time
+    (every row at the same position) up to its longest length; then every
+    slot beyond a row's own length is marked unwritten (-1).  Returns one
+    dict per sequence: its per-stage cache (one row), length, slot count
+    and next token, all on the card."""
+    from repro_torch.models import (init_decode_cache, slice_decode_cache,
+                                    stage_decode_step)
+    rng = np.random.default_rng(0)
+    g = torch.Generator().manual_seed(1)
+    pool = []
+    for slots, (lo, hi) in zip(LEN_BUCKETS, ((32, 240), (300, 1000))):
+        lens = torch.from_numpy(rng.integers(lo, hi + 1, 8).astype(np.int32))
+        cache = init_decode_cache(cfg, 8, slots, device="cuda")
+        n = int(lens.max())
+        tokens = torch.randint(cfg.vocab_size, (n + 1, 8), generator=g,
+                               dtype=torch.int32).cuda()
+        t0 = time.perf_counter()
+        for t in range(n):
+            h = tokens[t]
+            cur = torch.full((8,), t, dtype=torch.int32, device="cuda")
+            for s in range(cfg.num_stages):
+                h, cache[s] = stage_decode_step(cfg, params, s, cache[s], h,
+                                                cur, inplace=True)
+        torch.cuda.synchronize()
+        lens_d = lens.cuda()
+        for st in cache:
+            for layer in st:
+                layer["slot_pos"].masked_fill_(
+                    layer["slot_pos"] >= lens_d[:, None], -1)
+        print(f"[decode] warmed 8 sequences of lengths {lens.tolist()} in "
+              f"{slots}-slot caches: {n} batched steps in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for i in range(8):
+            # the token at position len_i is the one each request decodes
+            pool.append(dict(
+                cache=[slice_decode_cache(st, i) for st in cache],
+                length=int(lens[i]), slots=slots,
+                token=tokens[int(lens[i]), i:i + 1].clone()))
+    return pool
+
+
+def _decode_batch(seqs):
+    """Token rows and cur_pos (the sequences' lengths) of ``seqs``."""
+    h = torch.cat([seq["token"] for seq in seqs])
+    cur = torch.tensor([seq["length"] for seq in seqs],
+                       dtype=torch.int32, device="cuda")
+    return h, cur
+
+
+def phase_decode_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.exit_confidence.ops import exit_confidence
+    from repro_torch.launch.kernel import KernelDecodeStageFns
+    from repro_torch.models import (concat_decode_caches, embed_one,
+                                    init_params, stage_decode_step)
+    from repro_torch.models.attention import apply_gqa_step
+    from repro_torch.models.exits import apply_exit, confidence_from_logits
+    from repro_torch.serving import (Request, ServeSpec, Service,
+                                     profile_host_overhead)
+    from repro_torch.serving.batch.batcher import BatchTimeModel
+
+    cfg = get_config("qwen3-4b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[decode] qwen3-4b: {n_params} params "
+          f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f}"
+          f" GB {cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s"
+          f" (set-up)")
+    layers = [len(st) for st in params["stages"]]
+    sfns = KernelDecodeStageFns(cfg, BATCH_BUCKETS)
+    pool = _qwen3_pool(cfg, params)
+    long_seqs = [seq for seq in pool if seq["slots"] == 1024]
+
+    # the kernel route against the plain route, batch 8, ragged positions.
+    # h and the caches are bf16: the kernel tests' bf16 tolerance (per row
+    # against the row's scale for a whole stage, see _within_rows; the same
+    # check on fp32 copies is held elementwise, _route_check_fp32)
+    tol = ATTN_TOL[torch.bfloat16]
+    exit_p = [{"ln": params["exits"][s]["ln"].float(),
+               "w_out": params["exit_shared"]["w_out"].float()}
+              for s in range(cfg.num_stages)]
+    h, cur = _decode_batch(long_seqs)
+    # first one layer from one input, where the routes differ only in the
+    # attention call: held elementwise
+    x = embed_one(cfg, params["embed"], h)
+    cache0 = concat_decode_caches([seq["cache"][0][:1] for seq in long_seqs])
+    ys = [apply_gqa_step(cfg, params["stages"][0][0]["mixer"], x,
+                         cache=cache0[0], cur_pos=cur, decode_attn=route)[0]
+          for route in ("kernel", "plain")]
+    torch.cuda.synchronize()
+    ok, err = _within(*ys, tol)
+    if not ok:
+        raise AssertionError(f"decode layer 0: kernel route disagrees with "
+                             f"the plain route (max abs err {err})")
+    print(f"[decode] layer 0 kernel vs plain attention route (B 8): max abs "
+          f"err {err:.3e}, elementwise within atol = rtol = {tol}")
+    # then each stage, both routes starting from the same hidden state
+    for s in range(cfg.num_stages):
+        caches = [seq["cache"][s] for seq in long_seqs]
+        hk, ck, pred, conf = sfns.call(s, params, h,
+                                       concat_decode_caches(caches), cur,
+                                       inplace=True)
+        hp, cp = stage_decode_step(cfg, params, s,
+                                   concat_decode_caches(caches), h, cur,
+                                   decode_attn="plain", inplace=True)
+        # the plain exit in fp32 from the same rows, as the kernel computes
+        logits = apply_exit(cfg, exit_p[s], hk.float()[:, None])[:, 0]
+        conf_p = confidence_from_logits(logits)
+        torch.cuda.synchronize()
+        h_ok, h_err, h_out = _within_rows(hk, hp, tol)
+        kv = [_within_rows(a[k], b[k], tol) for a, b in zip(ck, cp)
+              for k in ("k", "v")]
+        kv_ok = all(ok for ok, _, _ in kv)
+        kv_err = max(e for _, e, _ in kv)
+        kv_out = sum(n for _, _, n in kv)
+        c_err = float((conf - conf_p).abs().max())
+        same_slots = all(torch.equal(a["slot_pos"], b["slot_pos"])
+                         for a, b in zip(ck, cp))
+        if not (torch.isfinite(hk).all() and torch.isfinite(conf).all()):
+            raise AssertionError(f"decode stage {s}: non-finite output")
+        if not (h_ok and kv_ok and same_slots) or c_err > CONF_ATOL \
+                or not torch.equal(pred.long(), logits.argmax(-1)):
+            raise AssertionError(
+                f"decode stage {s}: kernel route disagrees with the plain "
+                f"route (h err {h_err}, {h_out} elements out; cache err "
+                f"{kv_err}, {kv_out} out; slot_pos equal {same_slots}; conf "
+                f"err {c_err}; |h| up to {float(hp.float().abs().max())})")
+        print(f"[decode] stage {s} kernel vs plain route (B 8, positions "
+              f"{cur.tolist()}): h max abs err {h_err:.3e} (|h| up to "
+              f"{float(hp.float().abs().max()):.3e}; {h_out} of "
+              f"{hp.numel()} elements outside atol = rtol = {tol} "
+              f"elementwise), cache max abs err {kv_err:.3e} ({kv_out} of "
+              f"{sum(a[k].numel() for a in cp for k in ('k', 'v'))} "
+              f"outside); slot_pos equal, conf err {c_err:.3e}, pred equal")
+        h = hk
+    _route_check_fp32(cfg, params, sfns, long_seqs)
+
+    # stage WCETs per (stage, batch bucket) at length 1024: CUDA events
+    # around what a dispatch does (cache concatenation and the stage)
+    n_runs = 15
+    mat = np.zeros((cfg.num_stages, len(BATCH_BUCKETS)))
+    for bi, b in enumerate(BATCH_BUCKETS):
+        seqs = long_seqs[:b]
+        h, cur = _decode_batch(seqs)
+        for s in range(cfg.num_stages):
+            ts = np.zeros(n_runs)
+            for i in range(n_runs + 1):
+                start, stop = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(2))
+                start.record()
+                cache = concat_decode_caches([seq["cache"][s]
+                                              for seq in seqs])
+                out = sfns.call(s, params, h, cache, cur, inplace=True)
+                stop.record()
+                stop.synchronize()
+                if i:                                 # the first is warm-up
+                    ts[i - 1] = start.elapsed_time(stop) / 1e3
+            mat[s, bi] = np.percentile(ts, 99.0)
+            h = out[0]
+    # run every (stage, bucket) once at the 256-slot count too, so the
+    # service's warm-up finds every shape already run
+    short = next(seq for seq in pool if seq["slots"] == 256)
+    sfns.warmup(params, {"h": short["token"], "cache": short["cache"],
+                         "cur_pos": torch.tensor([short["length"]],
+                                                 dtype=torch.int32,
+                                                 device="cuda")})
+    tm = BatchTimeModel.from_profile(mat, BATCH_BUCKETS)
+    host_overhead = profile_host_overhead(device="cuda")
+    print(f"[decode] stage WCETs (s) [stage x bucket 1,2,4,8] at 1024 "
+          f"slots: {np.array2string(mat, precision=6)}; host overhead "
+          f"{host_overhead * 1e6:.1f} us")
+
+    # 96 one-token requests from 8 closed-loop clients, sequences in turn
+    wcet = float(mat[:, 0].max())
+    d_lo, d_hi = 4.0 * wcet, 14.0 * wcet
+    rng = np.random.default_rng(1)
+    t_client = np.zeros(8)
+    stream = []
+    for j in range(96):
+        c = int(np.argmin(t_client))
+        rel = float(rng.uniform(d_lo, d_hi))
+        seq = pool[j % len(pool)]
+        inputs = {"h": seq["token"], "cache": seq["cache"],
+                  "cur_pos": torch.tensor([seq["length"]], dtype=torch.int32,
+                                          device="cuda")}
+        stream.append((float(t_client[c]),
+                       Request(inputs, rel, sample=j, client=c,
+                               seq_len=seq["slots"])))
+        t_client[c] += rel
+    stream.sort(key=lambda p: p[0])
+    spec = ServeSpec(policy="rtdeepiot",
+                     policy_args={"predictor": "exp",
+                                  "prior_curve": [0.5, 0.7, 0.85]},
+                     executor="device-kernel",
+                     executor_args={"mode": "decode",
+                                    "len_buckets": list(LEN_BUCKETS)},
+                     clock="wall", source="stream",
+                     host_overhead=host_overhead, pipeline_depth=3)
+    svc = Service.from_spec(spec, cfg=cfg, params=params, time_model=tm,
+                            stage_fns=sfns)
+
+    decode_attention.launches = 0
+    exit_confidence.launches = 0
+    res = svc.run(stream)
+    attn_launches = decode_attention.launches
+    exit_launches = exit_confidence.launches
+
+    ex = svc.executor
+    per_stage = {int(s): n for s, n in sorted(ex.stage_dispatches.items())}
+    want_attn = sum(layers[s] * n for s, n in per_stage.items())
+    preds = [r.prediction for r in svc.responses if not r.missed]
+    checks = {
+        "96 responses": len(svc.responses) == 96,
+        "hidden-state cache empty": ex.cache_stats()["live"] == 0,
+        "some request served": len(preds) > 0,
+        "every pred a token id": all(0 <= p < cfg.vocab_size for p in preds),
+        "dispatches counted per stage":
+            sum(per_stage.values()) == res.n_dispatches > 0,
+        "decode kernel launched once per layer of each dispatched stage":
+            attn_launches == want_attn,
+        "exit kernel launched once per dispatch":
+            exit_launches == res.n_dispatches,
+    }
+    lat = float(np.mean([r.latency for r in svc.responses]))
+    print(f"[decode] deadlines U[{d_lo * 1e3:.3f}, {d_hi * 1e3:.3f}] ms; "
+          f"miss rate {res.miss_rate:.4f} mean depth {res.mean_depth:.4f} "
+          f"mean latency {lat * 1e3:.4f} ms; dispatches per stage "
+          f"{per_stage} (layers per stage {layers}); decode-kernel launches "
+          f"{attn_launches} (want {want_attn}); exit-kernel launches "
+          f"{exit_launches} (want {res.n_dispatches})")
+    print(f"[decode] device_time_stats {json.dumps(ex.device_time_stats())}")
+    print(f"[decode] cache_stats {ex.cache_stats()}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"decode serve phase failed: {failed}")
+    return dict(attn_launches=attn_launches, exit_launches=exit_launches,
+                n_dispatches=res.n_dispatches, wcet=mat.tolist())
+
+
+def _to_fp32(tree):
+    """A copy of a tree of tensors with every floating leaf in fp32 (the
+    int32 ``slot_pos`` stays as it is)."""
+    if isinstance(tree, dict):
+        return {k: _to_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_fp32(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _route_check_fp32(cfg, params, sfns, seqs):
+    """Each stage's kernel route against its plain route on fp32 copies of
+    the params and of the pool's caches, batch 8, ragged positions.  In
+    fp32 the two routes differ only in the attention's summation order, so
+    h, the new caches and conf must agree elementwise within the fp32
+    tolerance (2e-5), with identical preds: the witness that the bf16
+    check's per-row form covers rounding, not a fault of the kernel."""
+    from repro_torch.models import concat_decode_caches, stage_decode_step
+    from repro_torch.models.exits import apply_exit, confidence_from_logits
+    tol = ATTN_TOL[torch.float32]
+    p32 = _to_fp32(params)
+    h, cur = _decode_batch(seqs)
+    for s in range(cfg.num_stages):
+        caches = [_to_fp32(seq["cache"][s]) for seq in seqs]
+        hk, ck, pred, conf = sfns.call(s, p32, h, concat_decode_caches(caches),
+                                       cur, inplace=True)
+        hp, cp = stage_decode_step(cfg, p32, s, concat_decode_caches(caches),
+                                   h, cur, decode_attn="plain", inplace=True)
+        logits = apply_exit(cfg, {**p32["exits"][s], **p32["exit_shared"]},
+                            hk[:, None])[:, 0]
+        conf_p = confidence_from_logits(logits)
+        torch.cuda.synchronize()
+        if hk.dtype != torch.float32 or ck[0]["k"].dtype != torch.float32:
+            raise AssertionError(f"decode stage {s} fp32: the route ran in "
+                                 f"{hk.dtype} / {ck[0]['k'].dtype}")
+        h_ok, h_err = _within(hk, hp, tol)
+        kv = [_within(a[k], b[k], tol) for a, b in zip(ck, cp)
+              for k in ("k", "v")]
+        kv_ok = all(ok for ok, _ in kv)
+        kv_err = max(e for _, e in kv)
+        c_err = float((conf - conf_p).abs().max())
+        same_slots = all(torch.equal(a["slot_pos"], b["slot_pos"])
+                         for a, b in zip(ck, cp))
+        same_pred = torch.equal(pred.long(), logits.argmax(-1))
+        if not (h_ok and kv_ok and same_slots and same_pred) \
+                or c_err > CONF_ATOL:
+            raise AssertionError(
+                f"decode stage {s} fp32: kernel route disagrees with the "
+                f"plain route elementwise (h err {h_err}, cache err "
+                f"{kv_err}, slot_pos equal {same_slots}, conf err {c_err}, "
+                f"pred equal {same_pred})")
+        print(f"[decode] stage {s} kernel vs plain route in fp32 (B 8): h "
+              f"max abs err {h_err:.3e} (|h| up to "
+              f"{float(hp.abs().max()):.3e}), cache max abs err "
+              f"{kv_err:.3e}, all elementwise within atol = rtol = {tol}; "
+              f"slot_pos equal, conf err {c_err:.3e}, pred equal")
+        h = hk
+        del caches, ck, cp
+    del p32
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_launcher() -> dict:
+    """The token-loop launcher with speculation on the card: 24 tokens of
+    the reduced qwen3-4b, as ``python -m repro_torch.launch.serve --tokens
+    24 --pipeline`` runs it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.launch import serve
+    decode_attention.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        met = serve.main(["--tokens", "24", "--pipeline", "--device",
+                          "cuda"])
+    launches = decode_attention.launches
+    text = buf.getvalue()
+    print("\n".join(f"[launcher] {line}" for line in text.splitlines()
+                    if line.strip() and not line.startswith("token ")))
+    depths = [r["depth"] for r in met.per_request]
+    n_stages = get_config("qwen3-4b").reduced().num_stages
+    hist = np.bincount(depths, minlength=n_stages + 1)[1:].tolist()
+    print(f"[launcher] depth histogram from the service's records {hist}; "
+          f"decode-kernel launches {launches}")
+    if launches == 0 or sum(hist) != 24 or met.n_requests != 24:
+        raise AssertionError(f"launcher: {launches} decode-kernel launches, "
+                             f"depth histogram {hist}")
+    return dict(launches=launches, depth_hist=hist)
+
+
+def phase_launcher_mixed() -> dict:
+    """The launcher's speculative token loop at a confidence target that
+    mixes depths: the median stage-1 confidence of a run that stops every
+    token at stage 1.  Built from the launcher's own components, as its
+    ``main`` builds them, so the committed cache can be read afterwards.
+    Checks that speculative deeper steps were discarded and that the
+    committed cache holds, per stage, exactly the positions of the tokens
+    whose chosen depth ran that stage: a discarded depth left no slot
+    written (slot_pos -1, k and v zero)."""
+    import argparse
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import init_decode_cache, init_params
+    from repro_torch.serving import Service
+    cfg = get_config("qwen3-4b").reduced()
+    n_stages = len(cfg.stage_boundaries())
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    B, tokens = 4, 24
+
+    def run(target):
+        args = argparse.Namespace(conf_target=target, pipeline=True,
+                                  tokens=tokens)
+        records = []
+
+        def advance(task, out):
+            records.append((task.sample, task.executed, task.last_confidence))
+            return out.logits[-1].argmax(-1).to(torch.int32)
+        svc = Service.from_spec(
+            serve.build_spec(args, n_stages),
+            steps=serve.make_steps(cfg, n_stages), params=params,
+            cache=init_decode_cache(cfg, B, slots=tokens + 1, device="cuda"),
+            tok=torch.zeros(B, dtype=torch.int32, device="cuda"),
+            advance=advance)
+        svc.run()
+        svc.close()
+        return svc.executor, records
+
+    target = float(np.median([r[2] for r in run(0.0)[1]]))
+    decode_attention.launches = 0
+    ex, records = run(target)
+    launches = decode_attention.launches
+    depths = {t: d for t, d, _ in records}
+    hist = np.bincount(list(depths.values()),
+                       minlength=n_stages + 1)[1:].tolist()
+    discarded = ex.speculated - ex.spec_hits
+    stray = 0
+    for s, st in enumerate(ex.cache):
+        ran = torch.tensor([t for t in range(tokens) if depths[t] > s],
+                           dtype=torch.long)
+        want = torch.full((B, tokens + 1), -1, dtype=torch.int32)
+        want[:, ran] = ran.to(torch.int32)
+        for layer in st:
+            written = layer["k"].ne(0).any(-1).any(1).cpu()   # (B, slots)
+            stray += int((layer["slot_pos"].cpu() != want).sum())
+            stray += int((written != (want >= 0)).sum())
+    print(f"[launcher] conf target {target:.6f} (median stage-1 "
+          f"confidence): depth histogram {hist}, {discarded} speculative "
+          f"deeper steps discarded, {ex.spec_hits} consumed; decode-kernel "
+          f"launches {launches}; committed cache entries that disagree "
+          f"with the chosen depths: {stray}")
+    if sorted(depths) != list(range(tokens)) or sum(hist) != tokens \
+            or discarded == 0 or launches == 0 or stray:
+        raise AssertionError(f"launcher at a mixed target: depths {hist}, "
+                             f"{discarded} discarded, {launches} launches, "
+                             f"{stray} stray cache entries")
+    return dict(launches=launches, depth_hist=hist, discarded=discarded)
+
+
 def main() -> int:
-    name = phase_device()
+    name, smi = phase_device()
     _import_port()
     phase_build()
-    err = check_exit_confidence()
+    exit_err = check_exit_confidence()
+    attn_err = check_decode_attention()
     timing = phase_timing()
     serve = phase_serve()
-    path = timing["path"]
+    decode = phase_decode_serve()
+    launcher = phase_launcher()
+    mixed = phase_launcher_mixed()
+
+    def numbers(key):
+        return {k: timing[key][k] for k in
+                ("shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}
+
     kernels = [{
         "name": "exit_confidence", "route": "cuda",
         "source": "src/repro_torch/kernels/exit_confidence/exit_confidence.cu",
         "replaces": "src/repro/kernels/exit_confidence/kernel.py:67",
-        "launches": serve["launches"], "max_abs_err": err,
-        "ms": path["ms"], "plain_ms": path["plain_ms"],
-        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
-        "library_ms": None, "shape": list(path["shape"]),
-        "qwen3_4b_head": {k: timing["qwen3-4b head"][k] for k in
-                          ("shape", "ms", "plain_ms", "bound_ms",
-                           "bound_by")},
+        "launches": decode["exit_launches"], "max_abs_err": exit_err,
+        **numbers("qwen3-4b head bf16"),
+        "launches_by_path": {"classifier serve": serve["launches"],
+                             "decode serve": decode["exit_launches"]},
+        "classifier_path": numbers("path"),
+        "qwen3_4b_head_fp32": numbers("qwen3-4b head"),
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:62",
+        "launches": decode["attn_launches"], "max_abs_err": attn_err,
+        **numbers("decode S=1024"),
+        "launches_by_path": {"decode serve": decode["attn_launches"],
+                             "launcher": launcher["launches"],
+                             "launcher, mixed depths": mixed["launches"]},
+        "s4096": numbers("decode S=4096"),
     }]
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

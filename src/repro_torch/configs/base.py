@@ -1,8 +1,8 @@
 """Model configuration system (a copy of ``repro.configs.base``).
 
 Every architecture is a `ModelConfig` constructed in its own module under
-`repro_torch.configs`, registered by id.  The port registers only
-``anytime-classifier`` so far.  `reduced()` derives the CPU-smoke variant
+`repro_torch.configs`, registered by id.  The port registers
+``anytime-classifier`` and ``qwen3-4b`` so far.  `reduced()` derives the CPU-smoke variant
 of the same family (>=2 layers, d_model<=512, <=4 experts).
 """
 from __future__ import annotations
@@ -176,7 +176,6 @@ NOT_PORTED = (
     "deepseek-v3-671b",
     "nemotron-4-340b",
     "pixtral-12b",
-    "qwen3-4b",
     "xlstm-1.3b",
     "gemma3-4b",
     "musicgen-medium",
@@ -186,6 +185,7 @@ NOT_PORTED = (
 
 _MODULES = {
     "anytime-classifier": "anytime_classifier",
+    "qwen3-4b": "qwen3_4b",
 }
 
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
 
 SOURCE = pathlib.Path(__file__).with_name("exit_confidence.cu")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,9 +29,9 @@ def load_library():
     process return the same pair without touching the source."""
     lib, log = build.load(SOURCE)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.exit_confidence_launch.argtypes = [vp] * 10 + [i, i, i, f, f, vp]
+    lib.exit_confidence_launch.argtypes = [vp] * 10 + [i, i, i, f, f, i, vp]
     lib.exit_confidence_launch.restype = i
-    lib.exit_confidence_slab_width.argtypes = []
+    lib.exit_confidence_slab_width.argtypes = [i]
     lib.exit_confidence_slab_width.restype = i
     lib.exit_confidence_max_dim.argtypes = []
     lib.exit_confidence_max_dim.restype = i
@@ -41,9 +42,12 @@ def load_library():
 
 def _check(h, scale, w_out):
     for name, t in (("h", h), ("scale", scale), ("w_out", w_out)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"exit_confidence: {name} must be float32, "
-                            f"got {t.dtype}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"exit_confidence: {name} must be one of "
+                            f"{DTYPES}, got {t.dtype}")
+        if t.dtype != h.dtype:
+            raise TypeError(f"exit_confidence: {name} is {t.dtype}, h is "
+                            f"{h.dtype}; all three must share a dtype")
         if not t.is_contiguous():
             raise ValueError(f"exit_confidence: {name} must be contiguous")
         if t.device != h.device:
@@ -61,9 +65,9 @@ def exit_confidence(h, scale, w_out, *, eps: float = 1e-6,
                     temperature: float = 1.0):
     """Fused RMSNorm → ``@ w_out / temperature`` → (conf, pred, max, lse).
 
-    h: (N, d), scale: (d,), w_out: (d, V), all float32 and contiguous on
-    one device.  Returns (conf (N,), pred (N,) int32, max_logit (N,),
-    lse (N,))."""
+    h: (N, d), scale: (d,), w_out: (d, V), all float32 or all bfloat16,
+    contiguous on one device; the arithmetic is fp32 either way.  Returns
+    float32 (conf (N,), pred (N,) int32, max_logit (N,), lse (N,))."""
     _check(h, scale, w_out)
     if h.device.type == "cpu":
         return exit_confidence_ref(h, scale, w_out, eps=eps,
@@ -76,7 +80,8 @@ def exit_confidence(h, scale, w_out, *, eps: float = 1e-6,
     if d > lib.exit_confidence_max_dim():
         raise ValueError(f"exit_confidence: d={d} exceeds the kernel's "
                          f"limit of {lib.exit_confidence_max_dim()}")
-    n_slabs = -(-V // lib.exit_confidence_slab_width())
+    is_bf16 = int(h.dtype == torch.bfloat16)
+    n_slabs = -(-V // lib.exit_confidence_slab_width(is_bf16))
     with torch.cuda.device(h.device):
         # rows: conf, pred (int32 bits), max_logit, lse; and the per-slab
         # partials (max, sum, argmax bits) of pass 1 — two allocations
@@ -90,7 +95,8 @@ def exit_confidence(h, scale, w_out, *, eps: float = 1e-6,
             h.data_ptr(), scale.data_ptr(), w_out.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
             conf.data_ptr(), pred.data_ptr(), max_logit.data_ptr(),
-            lse.data_ptr(), N, d, V, float(eps), float(temperature), stream)
+            lse.data_ptr(), N, d, V, float(eps), float(temperature),
+            is_bf16, stream)
     if rc != 0:
         raise RuntimeError("exit_confidence: kernel launch failed: "
                            f"{lib.exit_confidence_error_string(rc).decode()}"

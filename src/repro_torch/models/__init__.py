@@ -1,10 +1,15 @@
 from repro_torch.models.exits import (exit_rows, exit_stats_fused,
                                       exit_stats_unfused)
-from repro_torch.models.model import (FEATURE_DIM, init_params,
-                                      params_device, stage_forward,
-                                      stage_layouts, stage_trunk,
-                                      synchronize)
+from repro_torch.models.model import (FEATURE_DIM, ExitsOut,
+                                      concat_decode_caches, decode_step,
+                                      embed_one, init_decode_cache,
+                                      init_params, params_device,
+                                      slice_decode_cache, stage_decode_step,
+                                      stage_forward, stage_layouts,
+                                      stage_trunk, synchronize)
 
-__all__ = ["FEATURE_DIM", "exit_rows", "exit_stats_fused",
-           "exit_stats_unfused", "init_params", "params_device",
+__all__ = ["FEATURE_DIM", "ExitsOut", "concat_decode_caches", "decode_step",
+           "embed_one", "exit_rows", "exit_stats_fused",
+           "exit_stats_unfused", "init_decode_cache", "init_params",
+           "params_device", "slice_decode_cache", "stage_decode_step",
            "stage_forward", "stage_layouts", "stage_trunk", "synchronize"]

@@ -1,4 +1,5 @@
-"""Shared model utilities: RMSNorm, RoPE, seeded init (``repro.models.common``)."""
+"""Shared model utilities: RMSNorm, RoPE, seeded init
+(``repro.models.common``)."""
 from __future__ import annotations
 
 import torch

@@ -33,19 +33,25 @@ def init_exit(cfg, generator, device, shared: bool = False):
 
 
 def apply_exit(cfg, params, h):
-    """h: (B, S, d) -> (B, V) classification logits read at cell 0."""
-    if cfg.modality != "features":
+    """h: (B, S, d) -> logits.
+
+    features: (B, V) classification logits read at cell 0;
+    text:     (B, S, V) next-token logits."""
+    if cfg.modality not in ("features", "text"):
         raise NotImplementedError(
             f"modality {cfg.modality!r} is not ported to repro_torch yet "
             "(ROADMAP Queue A item 12)")
     hn = rms_norm(h, params["ln"], cfg.norm_eps)
-    return hn[:, 0] @ params["w_out"]
+    if cfg.modality == "features":
+        return hn[:, 0] @ params["w_out"]
+    return hn @ params["w_out"]
 
 
 def exit_rows(cfg, h):
     """The rows the exit head reads: (B, d).
 
-    features: the anchor cell (position 0); 2-D input is taken as given.
+    features: the anchor cell (position 0); text: the last position; 2-D
+    input (a decode step's current-token rows) is taken as given.
     RMSNorm is per position, so norming the selected rows equals selecting
     from the normed tensor — which lets the fused kernel skip the rest of
     the sequence.  The result is a view; the kernel wants it contiguous."""

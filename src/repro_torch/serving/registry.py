@@ -38,9 +38,11 @@ source    ``closed-loop`` (§IV K-client workload), ``stream``
 ========  =================================================================
 
 ``repro_torch.launch.kernel`` registers the executor ``device-kernel``
-(classifier mode: each stage's trunk ends in the fused exit-confidence
-CUDA kernel) from outside this module, as ``repro.launch.serve`` does in
-the JAX package.  Keys of the JAX package that the port has not taken up
+(each stage ends in the fused exit-confidence CUDA kernel; decode mode
+runs attention through the decode-attention CUDA kernel) and
+``repro_torch.launch.serve`` registers the token-loop launcher's policy
+``conf-target``, executor ``decode`` and source ``token-loop``, from
+outside this module, as ``repro.launch.serve`` does in the JAX package.  Keys of the JAX package that the port has not taken up
 yet resolve to ``NotImplementedError`` naming their ROADMAP queue item
 (:data:`NOT_PORTED`).
 
@@ -81,15 +83,12 @@ NOT_PORTED = {
     ("executor", "device-sharded"): "Queue A item 10",
     ("executor", "zoo-oracle"): "Queue A item 9",
     ("executor", "zoo-device"): "Queue A item 9",
-    ("executor", "decode"): "Queue A item 8",
     ("policy", "rtdeepiot-zoo"): "Queue A item 9",
     ("policy", "rtdeepiot-adaptive"): "Queue A item 9",
-    ("policy", "conf-target"): "Queue A item 8",
     ("source", "traffic"): "Queue A item 9",
     ("source", "replay"): "Queue A item 9",
     ("source", "frontdoor"): "Queue A item 9",
     ("source", "durable"): "Queue A item 9",
-    ("source", "token-loop"): "Queue A item 8",
 }
 
 

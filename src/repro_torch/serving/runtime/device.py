@@ -27,13 +27,15 @@ Subclasses supply the window's payload: ``_dispatch_stage(stage, tasks)``
 launches the batched stage, ``_finalize(payload)`` brings what the host
 needs back once the window completes, and ``commit(task, k)`` reads row
 ``k`` of it.  The one subclass ported so far is ``KernelDeviceExecutor``
-(:mod:`repro_torch.launch.kernel`, fused exit kernel); the logits-returning
+(:mod:`repro_torch.launch.kernel`: fused exit kernel, classifier and decode
+modes); the logits-returning
 ``device-single`` / ``device-batched`` executors are not ported yet
 (ROADMAP Queue A item 5).
 
 Telemetry: per-stage host seconds (launch + commit work, on
 ``perf_counter``) vs device seconds (time the host spent *waiting* on the
-window's event), surfaced via :meth:`device_time_stats`.
+window's event), surfaced via :meth:`device_time_stats`; windows
+submitted per stage in ``stage_dispatches``.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ class DeviceExecutor:
         self.peak_cached = 0            # high-water mark of live states
         self._inflight = collections.deque()   # submitted, oldest first
         self._done = None
+        self.stage_dispatches = collections.Counter()   # stage -> windows
         # per-stage host/device seconds (see module docstring)
         self.stage_host_time: dict = collections.defaultdict(float)
         self.stage_device_time: dict = collections.defaultdict(float)
@@ -116,6 +119,7 @@ class DeviceExecutor:
         w0 = time.perf_counter()
         payload = self._dispatch_stage(stage, tasks)
         event = self._record()
+        self.stage_dispatches[stage] += 1
         self.stage_host_time[stage] += time.perf_counter() - w0
         self._inflight.append((stage, tasks, payload, event, now))
 

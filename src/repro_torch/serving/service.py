@@ -249,11 +249,7 @@ class ServeSpec:
                              f"{sorted(unknown)}; known: "
                              f"{sorted(KERNEL_ARGS)}")
         mode = ea.get("mode", "classifier")
-        if mode == "decode":
-            raise NotImplementedError(
-                "device-kernel mode 'decode' is not ported to repro_torch "
-                "yet (ROADMAP Queue A item 8)")
-        if mode != "classifier":
+        if mode not in ("classifier", "decode"):
             raise ValueError(f"device-kernel mode {mode!r} not in "
                              "('classifier', 'decode')")
         lbs = ea.get("len_buckets")

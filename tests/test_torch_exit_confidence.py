@@ -4,10 +4,12 @@ Inputs are made with numpy from a seed and handed to both packages.  On the
 CPU the port's wrapper runs its plain version (``ref.py``); it is held to
 the JAX Pallas kernel (in interpret mode, as the JAX package's own tests
 run it) and to ``exit_stats_unfused``, with the JAX package's kernel-test
-tolerances: conf atol 1e-5, max_logit / lse atol 1e-4, pred exact.  The
+tolerances: conf atol 1e-5, max_logit / lse atol 1e-4, pred exact; in
+fp32, and in bf16 as qwen3-4b's exit head holds its inputs.  The
 CUDA kernel itself is held to the plain version on the card by
 ``tests/test_torch_gpu.py``.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,17 +85,35 @@ def test_ties_take_first_index_like_jax_kernel(ties):
     assert (port[1] == ties[0]).all()
 
 
+@pytest.mark.parametrize("n,d,v", [(1, 32, 10), (8, 128, 1000),
+                                   (13, 64, 517)])
+def test_bf16_plain_matches_jax_kernel_interpret(n, d, v):
+    """bf16 h, scale and w_out (as qwen3-4b's head holds them): both
+    packages compute in fp32 from the same bf16 values and return fp32."""
+    h, scale, w = _inputs(n, d, v, seed=50 + n + d + v)
+    port = exit_confidence(*(torch.from_numpy(a).bfloat16()
+                             for a in (h, scale, w)))
+    assert port[0].dtype == torch.float32 and port[1].dtype == torch.int32
+    ref = jax_exit_kernel(*(jnp.asarray(a).astype(jnp.bfloat16)
+                            for a in (h, scale, w)),
+                          block_v=512, interpret=True)
+    _assert_close([o.numpy() for o in port], ref)
+
+
 def test_cpu_wrapper_leaves_launch_count():
     before = ops.exit_confidence.launches
     _port(*_inputs(4, 32, 10, seed=0))
     assert ops.exit_confidence.launches == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "noncontiguous", "shape"])
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "noncontiguous",
+                                 "shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     h, scale, w = (torch.from_numpy(a) for a in _inputs(4, 32, 10, seed=0))
     if bad == "dtype":
         h, exc = h.double(), TypeError
+    elif bad == "mixed":
+        w, exc = w.bfloat16(), TypeError
     elif bad == "noncontiguous":
         h, exc = torch.cat([h, h], dim=1)[:, ::2], ValueError
     else:

@@ -32,3 +32,17 @@ def test_exit_confidence_kernel_matches_plain_on_card(cuda_device):
     spec.loader.exec_module(chip_smoke)
     chip_smoke._import_port()
     assert chip_smoke.check_exit_confidence(verbose=False) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device):
+    """chip_smoke.py's decode-kernel check under pytest: the CUDA kernel
+    against its plain version at the decode path's shapes in bf16 and fp32,
+    with ragged positions, unwritten slots, a ring, window 8 and a row with
+    no valid slot (atol = rtol = fp32 2e-5, bf16 2e-2)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    chip_smoke._import_port()
+    assert chip_smoke.check_decode_attention(verbose=False) <= 2e-2

@@ -33,7 +33,9 @@ def test_no_jax_or_reference_import(path):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.launch.kernel, "
-            "repro_torch.serving, repro_torch.interop; "
+            "repro_torch.launch.serve, repro_torch.serving, "
+            "repro_torch.interop, repro_torch.kernels.decode_attention, "
+            "repro_torch.configs.qwen3_4b; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}

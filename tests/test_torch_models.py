@@ -109,4 +109,4 @@ def test_init_params_has_the_bridged_layout(models):
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        get_config("qwen3-4b")
+        get_config("xlstm-1.3b")

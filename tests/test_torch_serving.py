@@ -222,7 +222,7 @@ def test_live_wall_clock_service_matches_jax():
     ("source", "traffic"), ("source", "replay"), ("source", "frontdoor"),
     ("executor", "device-single"), ("executor", "device-batched"),
     ("executor", "device-sharded"), ("executor", "zoo-oracle"),
-    ("executor_args", {"mode": "decode"}),
+    ("source", "durable"),
 ])
 def test_unported_spec_raises(field, value):
     spec = _stream_spec(ServeSpec, "device-kernel", {})
