@@ -6,17 +6,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   — require a CUDA device; print its name, count, power limit and
               the fp32 matmul precision (TF32 is switched off);
-2. build    — build the CUDA kernels from the sources in this checkout, one
-              ``nvcc`` per source, all started together;
+2. build    — build the five CUDA kernels from the sources in this
+              checkout, one ``nvcc`` per source, all started together, and
+              print each one's ptxas summary;
 3. kernel   — hold each kernel against its plain PyTorch version on the
               card: the exit kernel at the classifier path's shapes, a
               ragged several-slab vocab, the qwen3-4b exit head in fp32 and
               bf16 and exact ties; the decode-attention kernel at the decode
               path's shapes in bf16 and fp32 with ragged positions,
               unwritten slots, a ring, a window and a row with no valid slot;
+              RMSNorm, flash attention and the mLSTM chunk at the JAX kernel
+              tests' sweeps and the kernel benchmark's shapes in fp32 and
+              bf16 (RMSNorm also at qwen3-4b's width; flash attention also
+              with a window and no causal mask, window 0, a ragged S and
+              qwen3-4b's heads; the mLSTM chunk fresh and with a state, and
+              two chunks chained);
 4. timing   — CUDA-event times of each kernel and its plain version beside
-              the bound, and of ``scaled_dot_product_attention`` as the
-              decode kernel's library yardstick;
+              the bound, and of its library call where one PyTorch call
+              computes the same function (``scaled_dot_product_attention``
+              for both attention kernels, ``rms_norm``); for RMSNorm, flash
+              attention and the mLSTM chunk this is their main path, the
+              kernel entry point at ``benchmarks/bench_kernels.py``'s shapes
+              (plus one larger shape each for the first two), with the
+              launch counts set to 0 before it and read after;
 5. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
               full width (random weights from seed 0), 120 requests from 8
               clients on the wall clock with two stacked device windows, with
@@ -29,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               stage WCETs per batch bucket, then 96 one-token requests from 8
               clients over two length buckets, with a check that every
               stage dispatch launched the decode kernel once per layer and
-              the exit kernel once;
+              the exit kernel once, and the peak device memory of the 96
+              requests;
 7. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
               speculation, 24 tokens; then its components again at a
               confidence target that mixes depths, with a check that the
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import importlib
 import io
 import json
 import pathlib
@@ -57,8 +71,12 @@ SRC = pathlib.Path(__file__).resolve().parent / "src"
 
 CONF_ATOL = 1e-5     # the JAX package's own kernel tests: conf 1e-5,
 STAT_ATOL = 1e-4     # max_logit / lse 1e-4, pred exact
-# decode attention: tests/test_kernels.py's tolerance (atol = rtol)
+# tests/test_kernels.py's tolerances (atol = rtol) for decode attention,
+# flash attention, RMSNorm and the mLSTM chunk (bf16 8e-2, two chunks
+# chained 2e-4)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+MLSTM_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-2}
+MLSTM_CHAINED_TOL = 2e-4
 
 QWEN3_4B_HEAD = (8, 2560, 151936)   # rows, d_model, vocab of qwen3-4b
 QWEN3_4B_ATTN = (32, 8, 128)        # query heads, KV heads, head dim
@@ -111,17 +129,20 @@ def _ptxas_summary(log: str) -> str:
             f"{'no spills' if not any(spills) else f'spills {spills}'}")
 
 
+KERNELS = ("exit_confidence", "decode_attention", "rmsnorm",
+           "flash_attention", "mlstm_chunk")
+
+
 def phase_build() -> None:
     """Build every kernel library at once (one nvcc per source)."""
-    from repro_torch.kernels.decode_attention import ops as attn_ops
-    from repro_torch.kernels.exit_confidence import ops as exit_ops
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{name}.ops")
+            for name in KERNELS}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        jobs = {name: pool.submit(mod.load_library) for name, mod in
-                (("exit_confidence", exit_ops),
-                 ("decode_attention", attn_ops))}
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        jobs = {name: pool.submit(mod.load_library)
+                for name, mod in mods.items()}
         logs = {name: job.result()[1] for name, job in jobs.items()}
-    print(f"[build] both kernels: {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {len(logs)} kernels: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"[build] {name}: {_ptxas_summary(log)}")
 
@@ -312,6 +333,251 @@ def check_decode_attention(verbose: bool = True) -> float:
     return worst
 
 
+def _randn(shape, g, scale=1.0):
+    return scale * torch.randn(shape, generator=g)
+
+
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def check_rmsnorm(verbose: bool = True) -> float:
+    """Kernel against plain version at ``tests/test_kernels.py``'s sweep
+    (N, d of (8, 32), (37, 64), (256, 128), (5, 256)), the kernel
+    benchmark's 1024 x 512, qwen3-4b's width 2560 and widths that take the
+    scalar path, in fp32 and bf16 (scale in x's dtype, and fp32 scale with
+    bf16 x).  Returns the largest abs error; raises on any disagreement."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    shapes = [(8, 32), (37, 64), (256, 128), (5, 256), (1024, 512),
+              (37, 2560), (8, 2560), (13, 99), (6, 100)]
+    worst = 0.0
+    for i, ((N, d), dtype, scale_fp32) in enumerate(
+            [(sh, dt, False) for dt in (torch.float32, torch.bfloat16)
+             for sh in shapes]
+            + [((37, 2560), torch.bfloat16, True),
+               ((13, 100), torch.bfloat16, True)]):
+        g = torch.Generator().manual_seed(300 + i)
+        x = _randn((N, d), g).to("cuda", dtype)
+        scale = _randn((d,), g, 0.1).to(
+            "cuda", torch.float32 if scale_fp32 else dtype)
+        got = rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        want = rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype]
+        ok, err = _within(got, want, tol)
+        if verbose:
+            print(f"[kernel] rmsnorm N={N} d={d} {_dt(dtype)}"
+                  f"{' (fp32 scale)' if scale_fp32 else ''}: max abs err "
+                  f"{err:.3e} (tol {tol:g})")
+        if not ok or got.dtype != dtype or got.shape != x.shape \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rmsnorm N={N} d={d} {dtype}: kernel "
+                                 "disagrees with the plain version (max abs "
+                                 f"err {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def _attn_inputs(B, H, KV, S, dh, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(_randn(shape, g).to("cuda", dtype)
+                 for shape in ((B, H, S, dh), (B, KV, S, dh), (B, KV, S, dh)))
+
+
+def check_flash_attention(verbose: bool = True) -> float:
+    """Kernel against plain version at ``tests/test_kernels.py``'s sweep
+    (four shapes x causal / not / causal with window 16), the kernel
+    benchmark's shape, no causal mask with window 8, window 0 (rows with
+    no visible key all zeros),
+    ragged S, qwen3-4b's heads (H 32, KV 8, dh 128) and more than 8 query
+    heads per KV head, in fp32 and bf16.  Returns the largest abs error;
+    raises on any disagreement."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    sweep = [(1, 2, 2, 32, 16), (2, 4, 2, 64, 32), (1, 8, 1, 128, 64),
+             (2, 6, 2, 48, 32)]
+    cases = [(sh, {"causal": c, "window": w}) for sh in sweep
+             for c, w in ((True, None), (False, None), (True, 16))]
+    cases += [((1, 4, 2, 256, 64), {"causal": True, "window": None}),
+              ((2, 4, 2, 64, 32), {"causal": False, "window": 8}),
+              ((1, 4, 2, 100, 64), {"causal": False, "window": 8}),
+              ((2, 4, 2, 64, 32), {"causal": True, "window": 0}),
+              ((1, 4, 1, 64, 16), {"causal": False, "window": 0}),
+              ((2, 4, 2, 1000, 64), {"causal": True, "window": None}),
+              ((1, 3, 3, 77, 128), {"causal": True, "window": 20}),
+              ((1, 32, 8, 512, 128), {"causal": True, "window": None}),
+              ((1, 32, 8, 300, 128), {"causal": False, "window": None}),
+              ((2, 16, 1, 40, 64), {"causal": True, "window": None})]
+    worst = 0.0
+    i = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        for (B, H, KV, S, dh), kw in cases:
+            i += 1
+            q, k, v = _attn_inputs(B, H, KV, S, dh, dtype, seed=400 + i)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ok, err = _within(got, want, tol)
+            label = (f"B={B} H={H} KV={KV} S={S} dh={dh} causal "
+                     f"{kw['causal']} window {kw['window']} {_dt(dtype)}")
+            # causal with window 0 leaves no key visible; without the
+            # causal mask only the last position sees none
+            no_key = got if kw["causal"] else got[:, :, -1]
+            if kw["window"] == 0 and bool(no_key.ne(0).any()):
+                raise AssertionError(f"flash_attention {label}: a row with "
+                                     "no visible key is not all zeros")
+            if verbose:
+                print(f"[kernel] flash_attention {label}: max abs err "
+                      f"{err:.3e} (tol {tol:g})")
+            if not ok or got.dtype != dtype or got.shape != q.shape \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_attention {label}: kernel "
+                                     "disagrees with the plain version (max "
+                                     f"abs err {err})")
+            worst = max(worst, err)
+    return worst
+
+
+def _mlstm_inputs(B, H, L, dh, dtype, seed, *, state):
+    """q, k, v in ``dtype``; gates and state fp32, on the card.  ``state``:
+    C0, n0 of 0.1 N(0, 1) and m0 = 0; else the fresh state (zeros, m0 =
+    -1e30).  f_pre is raised by 2, as the JAX kernel tests raise it."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (_randn((B, H, L, dh), g).to("cuda", dtype) for _ in range(3))
+    i_pre = _randn((B, H, L), g).cuda()
+    f_pre = (_randn((B, H, L), g) + 2.0).cuda()
+    if state:
+        C0 = _randn((B, H, dh, dh), g, 0.1).cuda()
+        n0 = _randn((B, H, dh), g, 0.1).cuda()
+        m0 = torch.zeros(B, H, device="cuda")
+    else:
+        C0 = torch.zeros(B, H, dh, dh, device="cuda")
+        n0 = torch.zeros(B, H, dh, device="cuda")
+        m0 = torch.full((B, H), -1e30, device="cuda")
+    return q, k, v, i_pre, f_pre, C0, n0, m0
+
+
+def _mlstm_condition(q, k, i_pre, f_pre, n0, m0):
+    """Condition number of each row's normaliser, (B, H, L), at least 1:
+    ``(sum_s |W_ts| + exp(m0 - g_t) |q_t| . |n0|) / den_t``.  ``h_t`` is a
+    ratio whose denominator ``den_t = max(|sum_s W_ts + exp(m0 - g_t) q_t .
+    n0|, exp(-m_t))`` is a signed sum; where it cancels, fp32 rounding of
+    the summands (in any order) moves ``h_t`` by this factor more than it
+    moves a well-conditioned row."""
+    q, k, i_pre, f_pre, n0, m0 = (t.double() for t in
+                                  (q, k, i_pre, f_pre, n0, m0))
+    L = q.shape[2]
+    b = torch.cumsum(torch.nn.functional.logsigmoid(f_pre), -1)
+    u = i_pre - b
+    g = torch.maximum(m0[..., None], torch.cummax(u, -1).values)
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    w = torch.einsum("bhtd,bhsd->bhts", q, k) * torch.where(
+        causal, torch.exp(u[..., None, :] - g[..., :, None]), 0.0)
+    inter = torch.exp(m0[..., None] - g)
+    nq = w.sum(-1) + inter * torch.einsum("bhtd,bhd->bht", q, n0)
+    den = torch.maximum(nq.abs(), torch.exp(-(b + g)))
+    mass = w.abs().sum(-1) \
+        + inter * torch.einsum("bhtd,bhd->bht", q.abs(), n0.abs())
+    return (mass / den).clamp_min(1.0).float()
+
+
+def check_mlstm_chunk(verbose: bool = True) -> float:
+    """Kernel against plain version at ``tests/test_kernels.py``'s sweep
+    ((1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32)), the kernel benchmark's
+    B 2, H 4, L 128, dh 64 and a ragged L 100, fresh (m0 = -1e30) and with
+    a state, in fp32 and bf16 (bf16 8e-2), then two kernel chunks chained
+    against the plain version chained (2e-4).
+
+    C1, n1 and m1 are held elementwise at the tolerance.  h is held at the
+    tolerance times its row's condition number (``_mlstm_condition``): the
+    normaliser of a row cancels, and two fp32 summation orders then differ
+    by more than 2e-5 (the plain version against itself in float64 does,
+    printed as a witness with the count of elements outside the unscaled
+    bound).  Returns the largest abs error; raises on any
+    disagreement."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    shapes = [(1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32), (2, 4, 128, 64),
+              (1, 2, 100, 64)]
+
+    def h_check(got, want, tol, kappa):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        bound = tol + tol * want.abs()
+        ok = bool((err <= bound * kappa[..., None]).all())
+        return ok, float(err.max()), int((err > bound).sum())
+
+    def compare(label, args, got, want, tol, kappa):
+        ok_h, err_h, out_h = h_check(got[0], want[0], tol, kappa)
+        checks = [(ok_h, err_h)] + [_within(a, b, tol)
+                                    for a, b in zip(got[1:], want[1:])]
+        errs = [e for _, e in checks]
+        bad = [name for (ok, _), name, a, b in
+               zip(checks, ("h", "C1", "n1", "m1"), got, want)
+               if not ok or a.dtype != b.dtype or a.shape != b.shape
+               or not bool(torch.isfinite(a).all())]
+        # witness: the plain version (fp32 arithmetic) against the plain
+        # version in float64, under the same two bounds
+        w64 = mlstm_chunk_ref(*(t.double() for t in args))[0]
+        _, werr, wout = h_check(want[0], w64, tol, kappa)
+        if verbose:
+            print(f"[kernel] mlstm_chunk {label}: max abs err h "
+                  f"{errs[0]:.3e} ({out_h} elements outside {tol:g} "
+                  f"unscaled, row condition up to {float(kappa.max()):.1f}; "
+                  f"plain vs float64 {werr:.3e}, {wout} outside) C1 "
+                  f"{errs[1]:.3e} n1 {errs[2]:.3e} m1 {errs[3]:.3e} "
+                  f"(tol {tol:g})")
+        if bad:
+            raise AssertionError(f"mlstm_chunk {label}: kernel disagrees "
+                                 f"with the plain version on {bad} (max abs "
+                                 f"errs {errs})")
+        return max(errs)
+
+    worst = 0.0
+    i = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, L, dh in shapes:
+            for state in (False, True):
+                i += 1
+                args = _mlstm_inputs(B, H, L, dh, dtype, 500 + i,
+                                     state=state)
+                got = mlstm_chunk(*args)
+                torch.cuda.synchronize()
+                want = mlstm_chunk_ref(*args)
+                torch.cuda.synchronize()
+                q, k, _, i_pre, f_pre, _, n0, m0 = args
+                kappa = _mlstm_condition(q, k, i_pre, f_pre, n0, m0)
+                label = (f"B={B} H={H} L={L} dh={dh} {_dt(dtype)} "
+                         f"{'with a state' if state else 'fresh'}")
+                worst = max(worst, compare(label, args, got, want,
+                                           MLSTM_TOL[dtype], kappa))
+    # two chunks chained, from a fresh state
+    B, H, L, dh = 2, 4, 64, 64
+    q, k, v, i_pre, f_pre, C0, n0, m0 = _mlstm_inputs(
+        B, H, 2 * L, dh, torch.float32, 600, state=False)
+    halves = [tuple(t[:, :, j * L:(j + 1) * L].contiguous()
+                    for t in (q, k, v, i_pre, f_pre)) for j in (0, 1)]
+    outs, kappas = [], []
+    for fn in (mlstm_chunk, mlstm_chunk_ref):
+        h1, C1, n1, m1 = fn(*halves[0], C0, n0, m0)
+        h2, C2, n2, m2 = fn(*halves[1], C1, n1, m1)
+        outs.append((torch.cat([h1, h2], 2), C2, n2, m2))
+        if fn is mlstm_chunk_ref:
+            kappas = [_mlstm_condition(*hv[:2], *hv[3:], n, m)
+                      for hv, n, m in ((halves[0], n0, m0),
+                                       (halves[1], n1, m1))]
+    torch.cuda.synchronize()
+    worst = max(worst, compare(
+        f"two chunks of L={L} chained (B={B} H={H} dh={dh} fp32)",
+        (q, k, v, i_pre, f_pre, C0, n0, m0), outs[0], outs[1],
+        MLSTM_CHAINED_TOL, torch.cat(kappas, -1)))
+    return worst
+
+
 def _time_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -395,6 +661,107 @@ def phase_timing() -> dict:
               f"{ps[0]:.5f}/{ps[1]:.5f} ms, sdpa {lib[0]:.5f}/{lib[1]:.5f} "
               f"ms (max abs diff to the kernel {lib_err:.3e}), bound "
               f"{bound:.6f} ms ({by})")
+    return out
+
+
+def _timed_row(label, ks, ps, lib, bound, by, shape, dtype, lib_err=None):
+    print(f"[timing] {label}: kernel {ks[0]:.5f}/{ks[1]:.5f} ms, plain "
+          f"{ps[0]:.5f}/{ps[1]:.5f} ms, library "
+          + (f"{lib[0]:.5f}/{lib[1]:.5f} ms (max abs diff to the kernel "
+             f"{lib_err:.3e})" if lib else "none")
+          + f", bound {bound:.6f} ms ({by})")
+    return dict(shape=list(shape), dtype=str(dtype), ms=min(ks),
+                plain_ms=min(ps), bound_ms=bound, bound_by=by,
+                library_ms=min(lib) if lib else None)
+
+
+def phase_kernel_entry() -> dict:
+    """The kernel entry point of RMSNorm, flash attention and the mLSTM
+    chunk, as ``benchmarks/bench_kernels.py`` drives the JAX package's:
+    each kernel at that script's shape (and one larger shape for the first
+    two) timed in turns with its plain version, beside its bound and its
+    library call.  The launch counts are set to 0 before and read after;
+    each kernel must have launched, and each output is checked for shape,
+    dtype and finite values."""
+    from repro_torch.kernels import bounds
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    F = torch.nn.functional
+    fns = (rmsnorm, flash_attention, mlstm_chunk)
+    for fn in fns:
+        fn.launches = 0
+    out = {}
+
+    def finite(y, like):
+        if y.shape != like.shape or y.dtype != like.dtype \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"kernel entry: output {tuple(y.shape)} "
+                                 f"{y.dtype} is not finite or not shaped "
+                                 f"as {tuple(like.shape)} {like.dtype}")
+
+    for label, (N, d), dtype, iters in (
+            ("rmsnorm", (1024, 512), torch.float32, 2000),
+            ("rmsnorm qwen3-4b width", (16384, 2560), torch.bfloat16, 200)):
+        g = torch.Generator().manual_seed(700 + N)
+        x = _randn((N, d), g).to("cuda", dtype)
+        scale = _randn((d,), g, 0.1).to("cuda", dtype)
+        weight = 1.0 + scale                  # the library call's weight
+        ks, ps = _time_pair(lambda: rmsnorm(x, scale),
+                            lambda: rmsnorm_ref(x, scale), iters)
+        lib = [_time_ms(lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6),
+                        iters) for _ in range(2)]
+        y = rmsnorm(x, scale)
+        finite(y, x)
+        lib_err = float((F.rms_norm(x, (d,), weight=weight, eps=1e-6).float()
+                         - y.float()).abs().max())
+        bound, by = bounds.rmsnorm(N, d, x.element_size())
+        out[label] = _timed_row(f"{label} N={N} d={d} {_dt(dtype)}", ks, ps,
+                                lib, bound, by, (N, d), dtype, lib_err)
+        del x, scale, weight, y
+    for label, (B, H, KV, S, dh), dtype, iters in (
+            ("flash_attention", (1, 4, 2, 256, 64), torch.float32, 500),
+            ("flash_attention qwen3-4b heads", (1, 32, 8, 2048, 128),
+             torch.bfloat16, 10)):
+        q, k, v = _attn_inputs(B, H, KV, S, dh, dtype, seed=800 + S)
+        ks, ps = _time_pair(lambda: flash_attention(q, k, v),
+                            lambda: flash_attention_ref(q, k, v), iters)
+        lib = [_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters)
+            for _ in range(2)]
+        y = flash_attention(q, k, v)
+        finite(y, q)
+        lib_err = float((F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True).float()
+            - y.float()).abs().max())
+        bound, by = bounds.flash_attention(B, H, KV, S, dh, q.element_size(),
+                                           causal=True, window=None)
+        out[label] = _timed_row(
+            f"{label} B={B} H={H} KV={KV} S={S} dh={dh} causal "
+            f"{_dt(dtype)}", ks, ps, lib, bound, by, (B, H, KV, S, dh),
+            dtype, lib_err)
+        del q, k, v, y
+    B, H, L, dh = 2, 4, 128, 64
+    args = _mlstm_inputs(B, H, L, dh, torch.float32, 900, state=False)
+    ks, ps = _time_pair(lambda: mlstm_chunk(*args),
+                        lambda: mlstm_chunk_ref(*args), 500)
+    y = mlstm_chunk(*args)
+    finite(y[0], args[0])
+    for t, like in zip(y[1:], args[5:]):
+        finite(t, like)
+    bound, by = bounds.mlstm_chunk(B, H, L, dh, 4)
+    out["mlstm_chunk"] = _timed_row(
+        f"mlstm_chunk B={B} H={H} L={L} dh={dh} fp32", ks, ps, None, bound,
+        by, (B, H, L, dh), torch.float32)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    print(f"[timing] kernel entry launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"kernel entry: a kernel never launched: "
+                             f"{launches}")
+    out["launches"] = launches
     return out
 
 
@@ -690,7 +1057,12 @@ def phase_decode_serve() -> dict:
 
     decode_attention.launches = 0
     exit_confidence.launches = 0
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     res = svc.run(stream)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     attn_launches = decode_attention.launches
     exit_launches = exit_confidence.launches
 
@@ -719,11 +1091,15 @@ def phase_decode_serve() -> dict:
           f"{exit_launches} (want {res.n_dispatches})")
     print(f"[decode] device_time_stats {json.dumps(ex.device_time_stats())}")
     print(f"[decode] cache_stats {ex.cache_stats()}")
+    print(f"[decode] peak device memory over the 96 requests "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated; {mem_before / 1e9:.3f}"
+          f" GB allocated before them: weights and the pool)")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"decode serve phase failed: {failed}")
     return dict(attn_launches=attn_launches, exit_launches=exit_launches,
-                n_dispatches=res.n_dispatches, wcet=mat.tolist())
+                n_dispatches=res.n_dispatches, wcet=mat.tolist(),
+                peak_bytes=peak)
 
 
 def _to_fp32(tree):
@@ -895,27 +1271,46 @@ def phase_launcher_mixed() -> dict:
     return dict(launches=launches, depth_hist=hist, discarded=discarded)
 
 
+NEW_KERNELS = ("rmsnorm", "flash_attention", "mlstm_chunk")
+
+
+def check_new_kernels() -> tuple:
+    """The three kernels that only the kernel entry point runs, held
+    against their plain versions; returns ({name: largest abs error},
+    {name: launches made by the checks})."""
+    fns = {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{name}.ops"), name) for name in NEW_KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    errs = {"rmsnorm": check_rmsnorm(),
+            "flash_attention": check_flash_attention(),
+            "mlstm_chunk": check_mlstm_chunk()}
+    return errs, {name: fn.launches for name, fn in fns.items()}
+
+
 def main() -> int:
     name, smi = phase_device()
     _import_port()
     phase_build()
     exit_err = check_exit_confidence()
     attn_err = check_decode_attention()
+    new_errs, check_launches = check_new_kernels()
     timing = phase_timing()
+    entry = phase_kernel_entry()
     serve = phase_serve()
     decode = phase_decode_serve()
     launcher = phase_launcher()
     mixed = phase_launcher_mixed()
 
-    def numbers(key):
-        return {k: timing[key][k] for k in
+    def numbers(key, table=timing):
+        return {k: table[key][k] for k in
                 ("shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}
 
     kernels = [{
         "name": "exit_confidence", "route": "cuda",
         "source": "src/repro_torch/kernels/exit_confidence/exit_confidence.cu",
-        "replaces": "src/repro/kernels/exit_confidence/kernel.py:67",
+        "replaces": "src/repro/kernels/exit_confidence/kernel.py:70",
         "launches": decode["exit_launches"], "max_abs_err": exit_err,
         **numbers("qwen3-4b head bf16"),
         "launches_by_path": {"classifier serve": serve["launches"],
@@ -934,6 +1329,21 @@ def main() -> int:
                              "launcher, mixed depths": mixed["launches"]},
         "s4096": numbers("decode S=4096"),
     }]
+    larger = {"rmsnorm": "rmsnorm qwen3-4b width",
+              "flash_attention": "flash_attention qwen3-4b heads"}
+    for kname, line in (("rmsnorm", 23), ("flash_attention", 89),
+                        ("mlstm_chunk", 73)):
+        row = {
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{kname}/{kname}.cu",
+            "replaces": f"src/repro/kernels/{kname}/kernel.py:{line}",
+            "launches": entry["launches"][kname],
+            "max_abs_err": new_errs[kname], **numbers(kname, entry),
+            "launches_by_path": {"kernel checks": check_launches[kname],
+                                 "timing": entry["launches"][kname]}}
+        if kname in larger:
+            row["larger_shape"] = numbers(larger[kname], entry)
+        kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@
   same fused exit.  Per-request decode state ``{"h", "cache", "cur_pos"}``
   lives in the executor's hidden-state cache: dispatch concatenates the
   stage's caches across the batch (a fresh tensor, which the stage then
-  writes in place), commit slices each request's row and cache back out,
+  writes in place), commit copies each request's row and cache back out,
   on the device throughout.
 * **Length buckets** — :func:`length_bucketed_time_model` refines the
   ``(stage, batch-bucket)`` time model with a length-bucket axis, so the
@@ -151,8 +151,9 @@ class KernelDeviceExecutor(DeviceExecutor):
     ``{"h": token or hidden row, "cache": per-stage caches, "cur_pos"}``:
     dispatch concatenates the batch's rows and stage caches (padding
     repeats the last member, whose slot count every co-runner shares),
-    commit slices each request's row and stage cache back out into a new
-    state dict (the request's own inputs are never written).
+    commit copies each request's row and stage cache back out into a new
+    state dict (the request's own inputs are never written, and no
+    committed row keeps the batch alive).
 
     The window's payload is the stage output plus one (2, B) float32
     tensor holding ``conf`` and the int32 bits of ``pred``, copied to the
@@ -200,8 +201,13 @@ class KernelDeviceExecutor(DeviceExecutor):
         else:
             h_out, new_cache = out
             caches = list(st[1]["cache"])
-            caches[stage] = slice_decode_cache(new_cache, k)
-            st[1] = {**st[1], "h": h_out[k:k + 1], "cache": caches}
+            # the request keeps its row past this dispatch: a copy of the
+            # row, not a view, which would keep the whole padded batch
+            # alive.  The clone costs one row's copy; the reference's
+            # commit makes that copy too.
+            caches[stage] = [{key: x.clone() for key, x in layer.items()}
+                             for layer in slice_decode_cache(new_cache, k)]
+            st[1] = {**st[1], "h": h_out[k:k + 1].clone(), "cache": caches}
         c = float(conf[k])
         st[2] = (int(pred[k]), c)
         self.stage_host_time[stage] += time.perf_counter() - w0

@@ -18,8 +18,9 @@ double-dispatches an in-flight task.
 Per-request state (input dict or hidden rows, deepest in-time exit) lives
 here: it is the serving stack's hidden-state cache.  A request's state is
 registered at admission, **persisted across stage dispatches** (each
-``commit`` keeps a one-row view of the batched stage output, which stays
-on the device, never copied to the host between stages) and **evicted on
+``commit`` keeps the request's row of the batched stage output — a view
+of a hidden row, a copy of a decode cache row — which stays on the
+device, never copied to the host between stages) and **evicted on
 retire** (the recorder pops it via ``pop_state``).  ``cache_stats()``
 reports live/peak/evicted counts.
 

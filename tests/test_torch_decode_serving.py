@@ -38,7 +38,8 @@ from repro.serving import Service as JaxService
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import cache_from_reference, from_reference
-from repro_torch.launch.kernel import KernelDecodeStageFns
+from repro_torch.launch.kernel import (KernelDecodeStageFns,
+                                       KernelDeviceExecutor)
 from repro_torch.models import init_decode_cache
 from repro_torch.serving import Request, ServeSpec, Service
 from repro_torch.serving.registry import available
@@ -133,6 +134,56 @@ def test_device_kernel_decode_service_matches_jax(decode_models, depth):
     assert sum(ex.stage_dispatches.values()) == res.n_dispatches
     assert ex.cache_stats() == ref.executor.cache_stats()
     assert ex.cache_stats()["live"] == 0
+
+
+def test_decode_commit_keeps_no_view_of_the_batch(decode_models,
+                                                  monkeypatch):
+    """Each committed row (hidden row and every stage-cache tensor) is a
+    copy that owns one row's storage, not a view that would keep the
+    whole padded batch of the dispatch alive; the responses stay those of
+    the JAX package."""
+    jcfg, jparams, jfns, cfg, params, fns, caches, tokens = decode_models
+    ref = JaxService.from_spec(_spec(JaxServeSpec, 3), cfg=jcfg,
+                               params=jparams, stage_fns=jfns)
+    ref.run(_stream(
+        JaxRequest, caches, tokens,
+        lambda tok, pos, c: {"h": jnp.array([tok], jnp.int32),
+                             "cache": jax.tree.map(jnp.asarray, c),
+                             "cur_pos": jnp.array([pos], jnp.int32)}))
+    commit, checked = KernelDeviceExecutor.commit, []
+
+    def spy(ex, task, k):
+        stage, ((h_out, new_cache), _pred, _conf) = ex._done
+        conf = commit(ex, task, k)
+        st = ex.states[task.tid][1]
+        pairs = [(st["h"], h_out)] + [
+            (layer[key], batch[key])
+            for layer, batch in zip(st["cache"][stage], new_cache)
+            for key in layer]
+        for row, batch in pairs:
+            assert row.shape == (1,) + tuple(batch.shape[1:])
+            assert row.untyped_storage().data_ptr() \
+                != batch.untyped_storage().data_ptr()
+            assert row.untyped_storage().nbytes() \
+                == row.numel() * row.element_size()
+        checked.append(len(pairs))
+        return conf
+
+    monkeypatch.setattr(KernelDeviceExecutor, "commit", spy)
+    svc = Service.from_spec(_spec(ServeSpec, 3), cfg=cfg, params=params,
+                            stage_fns=fns)
+    svc.run(_stream(
+        Request, caches, tokens,
+        lambda tok, pos, c: {"h": torch.tensor([tok], dtype=torch.int32),
+                             "cache": cache_from_reference(cfg, c,
+                                                           device="cpu"),
+                             "cur_pos": torch.tensor([pos],
+                                                     dtype=torch.int32)}))
+    assert len(checked) == sum(r.depth for r in svc.responses) > 0
+    assert _key(svc.responses) == _key(ref.responses)
+    np.testing.assert_allclose([r.confidence for r in svc.responses],
+                               [r.confidence for r in ref.responses],
+                               rtol=1e-5)
 
 
 def test_decode_service_leaves_request_inputs_unwritten(decode_models):
