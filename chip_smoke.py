@@ -28,7 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               attention and the mLSTM chunk this is their main path, the
               kernel entry point at ``benchmarks/bench_kernels.py``'s shapes
               (plus one larger shape each for the first two), with the
-              launch counts set to 0 before it and read after;
+              launch counts set to 0 before it and read after, and each
+              output held against its plain version on the same inputs;
 5. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
               full width (random weights from seed 0), 120 requests from 8
               clients on the wall clock with two stacked device windows, with
@@ -77,6 +78,10 @@ STAT_ATOL = 1e-4     # max_logit / lse 1e-4, pred exact
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MLSTM_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-2}
 MLSTM_CHAINED_TOL = 2e-4
+# the most an fp32 mLSTM h may differ from the plain version in float64,
+# in units of the tolerance, on a row whose normaliser cancels
+# (``_mlstm_compare``)
+MLSTM_KAPPA_CAP = 16.0
 
 QWEN3_4B_HEAD = (8, 2560, 151936)   # rows, d_model, vocab of qwen3-4b
 QWEN3_4B_ATTN = (32, 8, 128)        # query heads, KV heads, head dim
@@ -461,28 +466,59 @@ def _mlstm_inputs(B, H, L, dh, dtype, seed, *, state):
     return q, k, v, i_pre, f_pre, C0, n0, m0
 
 
-def _mlstm_condition(q, k, i_pre, f_pre, n0, m0):
-    """Condition number of each row's normaliser, (B, H, L), at least 1:
-    ``(sum_s |W_ts| + exp(m0 - g_t) |q_t| . |n0|) / den_t``.  ``h_t`` is a
-    ratio whose denominator ``den_t = max(|sum_s W_ts + exp(m0 - g_t) q_t .
-    n0|, exp(-m_t))`` is a signed sum; where it cancels, fp32 rounding of
-    the summands (in any order) moves ``h_t`` by this factor more than it
-    moves a well-conditioned row."""
-    q, k, i_pre, f_pre, n0, m0 = (t.double() for t in
-                                  (q, k, i_pre, f_pre, n0, m0))
-    L = q.shape[2]
-    b = torch.cumsum(torch.nn.functional.logsigmoid(f_pre), -1)
-    u = i_pre - b
-    g = torch.maximum(m0[..., None], torch.cummax(u, -1).values)
-    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
-    w = torch.einsum("bhtd,bhsd->bhts", q, k) * torch.where(
-        causal, torch.exp(u[..., None, :] - g[..., :, None]), 0.0)
-    inter = torch.exp(m0[..., None] - g)
-    nq = w.sum(-1) + inter * torch.einsum("bhtd,bhd->bht", q, n0)
-    den = torch.maximum(nq.abs(), torch.exp(-(b + g)))
-    mass = w.abs().sum(-1) \
-        + inter * torch.einsum("bhtd,bhd->bht", q.abs(), n0.abs())
-    return (mass / den).clamp_min(1.0).float()
+def _mlstm_compare(label, got, want, tol, h64=None, kappa=None,
+                   verbose=True) -> float:
+    """Hold one mLSTM chunk's (h, C1, n1, m1) from the kernel against the
+    plain version's.  C1, n1 and m1, and a bf16 h, are held elementwise at
+    ``tol``.  An fp32 h is held against ``h64``, the plain version in
+    float64 on the same inputs, at ``tol (1 + |h64|)`` times its row's
+    condition number ``kappa`` (``mlstm_chunk_condition``; 1 where not
+    given) capped at ``MLSTM_KAPPA_CAP``: where a row's normaliser cancels,
+    any fp32 summation order moves h by more than ``tol``, the plain
+    version's too (printed beside the kernel's: each one's largest error
+    against float64 in units of ``tol (1 + |h64|)``).  Returns the largest
+    abs error against the plain version; raises on any disagreement."""
+    checks = {"h": _within(got[0], want[0], tol)}
+    note = ""
+    if h64 is not None:
+        unscaled = tol + tol * h64.abs()
+        scale = 1.0 if kappa is None else kappa.clamp(
+            max=MLSTM_KAPPA_CAP)[..., None]
+        err = (got[0].double() - h64).abs()
+        checks["h"] = (bool((err <= unscaled * scale).all()), checks["h"][1])
+        plain = (want[0].double() - h64).abs()
+        note = (f" (against float64, in units of {tol:g} (1 + |h|): kernel "
+                f"{float((err / unscaled).max()):.3f}, plain "
+                f"{float((plain / unscaled).max()):.3f}"
+                + ("" if kappa is None else
+                   f"; row condition up to {float(kappa.max()):.1f}") + ")")
+    for name, a, b in zip(("C1", "n1", "m1"), got[1:], want[1:]):
+        checks[name] = _within(a, b, tol)
+    bad = [name for (name, (ok, _)), a, b in zip(checks.items(), got, want)
+           if not ok or a.dtype != b.dtype or a.shape != b.shape
+           or not bool(torch.isfinite(a).all())]
+    errs = [e for _, e in checks.values()]
+    if verbose:
+        print(f"[kernel] mlstm_chunk {label}: max abs err h {errs[0]:.3e}"
+              f"{note} C1 {errs[1]:.3e} n1 {errs[2]:.3e} m1 {errs[3]:.3e} "
+              f"(tol {tol:g})")
+    if bad:
+        raise AssertionError(f"mlstm_chunk {label}: kernel disagrees with "
+                             f"the plain version on {bad} (max abs errs "
+                             f"{errs})")
+    return max(errs)
+
+
+def _mlstm_witness(args):
+    """For fp32 ``args``: h of the plain version in float64 and each row's
+    condition number (``_mlstm_compare``'s arguments); else (None, None)."""
+    from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_condition,
+                                                     mlstm_chunk_ref)
+    if args[0].dtype != torch.float32:
+        return None, None
+    q, k, _, i_pre, f_pre, _, n0, m0 = args
+    return (mlstm_chunk_ref(*(t.double() for t in args))[0],
+            mlstm_chunk_condition(q, k, i_pre, f_pre, n0, m0))
 
 
 def check_mlstm_chunk(verbose: bool = True) -> float:
@@ -490,53 +526,13 @@ def check_mlstm_chunk(verbose: bool = True) -> float:
     ((1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32)), the kernel benchmark's
     B 2, H 4, L 128, dh 64 and a ragged L 100, fresh (m0 = -1e30) and with
     a state, in fp32 and bf16 (bf16 8e-2), then two kernel chunks chained
-    against the plain version chained (2e-4).
-
-    C1, n1 and m1 are held elementwise at the tolerance.  h is held at the
-    tolerance times its row's condition number (``_mlstm_condition``): the
-    normaliser of a row cancels, and two fp32 summation orders then differ
-    by more than 2e-5 (the plain version against itself in float64 does,
-    printed as a witness with the count of elements outside the unscaled
-    bound).  Returns the largest abs error; raises on any
-    disagreement."""
+    against the plain version chained (2e-4; h against the plain version
+    chained in float64, unscaled), each as ``_mlstm_compare`` holds it.
+    Returns the largest abs error; raises on any disagreement."""
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
     shapes = [(1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32), (2, 4, 128, 64),
               (1, 2, 100, 64)]
-
-    def h_check(got, want, tol, kappa):
-        got, want = got.float(), want.float()
-        err = (got - want).abs()
-        bound = tol + tol * want.abs()
-        ok = bool((err <= bound * kappa[..., None]).all())
-        return ok, float(err.max()), int((err > bound).sum())
-
-    def compare(label, args, got, want, tol, kappa):
-        ok_h, err_h, out_h = h_check(got[0], want[0], tol, kappa)
-        checks = [(ok_h, err_h)] + [_within(a, b, tol)
-                                    for a, b in zip(got[1:], want[1:])]
-        errs = [e for _, e in checks]
-        bad = [name for (ok, _), name, a, b in
-               zip(checks, ("h", "C1", "n1", "m1"), got, want)
-               if not ok or a.dtype != b.dtype or a.shape != b.shape
-               or not bool(torch.isfinite(a).all())]
-        # witness: the plain version (fp32 arithmetic) against the plain
-        # version in float64, under the same two bounds
-        w64 = mlstm_chunk_ref(*(t.double() for t in args))[0]
-        _, werr, wout = h_check(want[0], w64, tol, kappa)
-        if verbose:
-            print(f"[kernel] mlstm_chunk {label}: max abs err h "
-                  f"{errs[0]:.3e} ({out_h} elements outside {tol:g} "
-                  f"unscaled, row condition up to {float(kappa.max()):.1f}; "
-                  f"plain vs float64 {werr:.3e}, {wout} outside) C1 "
-                  f"{errs[1]:.3e} n1 {errs[2]:.3e} m1 {errs[3]:.3e} "
-                  f"(tol {tol:g})")
-        if bad:
-            raise AssertionError(f"mlstm_chunk {label}: kernel disagrees "
-                                 f"with the plain version on {bad} (max abs "
-                                 f"errs {errs})")
-        return max(errs)
-
     worst = 0.0
     i = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -549,32 +545,28 @@ def check_mlstm_chunk(verbose: bool = True) -> float:
                 torch.cuda.synchronize()
                 want = mlstm_chunk_ref(*args)
                 torch.cuda.synchronize()
-                q, k, _, i_pre, f_pre, _, n0, m0 = args
-                kappa = _mlstm_condition(q, k, i_pre, f_pre, n0, m0)
                 label = (f"B={B} H={H} L={L} dh={dh} {_dt(dtype)} "
                          f"{'with a state' if state else 'fresh'}")
-                worst = max(worst, compare(label, args, got, want,
-                                           MLSTM_TOL[dtype], kappa))
+                worst = max(worst, _mlstm_compare(
+                    label, got, want, MLSTM_TOL[dtype],
+                    *_mlstm_witness(args), verbose=verbose))
     # two chunks chained, from a fresh state
     B, H, L, dh = 2, 4, 64, 64
-    q, k, v, i_pre, f_pre, C0, n0, m0 = _mlstm_inputs(
-        B, H, 2 * L, dh, torch.float32, 600, state=False)
-    halves = [tuple(t[:, :, j * L:(j + 1) * L].contiguous()
-                    for t in (q, k, v, i_pre, f_pre)) for j in (0, 1)]
-    outs, kappas = [], []
-    for fn in (mlstm_chunk, mlstm_chunk_ref):
+    full = _mlstm_inputs(B, H, 2 * L, dh, torch.float32, 600, state=False)
+    outs = []
+    for fn, cast in ((mlstm_chunk, lambda t: t),
+                     (mlstm_chunk_ref, lambda t: t),
+                     (mlstm_chunk_ref, lambda t: t.double())):
+        q, k, v, i_pre, f_pre, C0, n0, m0 = (cast(t) for t in full)
+        halves = [tuple(t[:, :, j * L:(j + 1) * L].contiguous()
+                        for t in (q, k, v, i_pre, f_pre)) for j in (0, 1)]
         h1, C1, n1, m1 = fn(*halves[0], C0, n0, m0)
         h2, C2, n2, m2 = fn(*halves[1], C1, n1, m1)
         outs.append((torch.cat([h1, h2], 2), C2, n2, m2))
-        if fn is mlstm_chunk_ref:
-            kappas = [_mlstm_condition(*hv[:2], *hv[3:], n, m)
-                      for hv, n, m in ((halves[0], n0, m0),
-                                       (halves[1], n1, m1))]
     torch.cuda.synchronize()
-    worst = max(worst, compare(
-        f"two chunks of L={L} chained (B={B} H={H} dh={dh} fp32)",
-        (q, k, v, i_pre, f_pre, C0, n0, m0), outs[0], outs[1],
-        MLSTM_CHAINED_TOL, torch.cat(kappas, -1)))
+    worst = max(worst, _mlstm_compare(
+        f"two chunks of L={L} chained (B={B} H={H} dh={dh} fp32)", outs[0],
+        outs[1], MLSTM_CHAINED_TOL, outs[2][0], verbose=verbose))
     return worst
 
 
@@ -664,15 +656,17 @@ def phase_timing() -> dict:
     return out
 
 
-def _timed_row(label, ks, ps, lib, bound, by, shape, dtype, lib_err=None):
-    print(f"[timing] {label}: kernel {ks[0]:.5f}/{ks[1]:.5f} ms, plain "
+def _timed_row(label, ks, ps, lib, bound, by, shape, dtype, err,
+               lib_err=None):
+    print(f"[timing] {label}: kernel {ks[0]:.5f}/{ks[1]:.5f} ms (max abs "
+          f"err to the plain version {err:.3e}), plain "
           f"{ps[0]:.5f}/{ps[1]:.5f} ms, library "
           + (f"{lib[0]:.5f}/{lib[1]:.5f} ms (max abs diff to the kernel "
              f"{lib_err:.3e})" if lib else "none")
           + f", bound {bound:.6f} ms ({by})")
     return dict(shape=list(shape), dtype=str(dtype), ms=min(ks),
                 plain_ms=min(ps), bound_ms=bound, bound_by=by,
-                library_ms=min(lib) if lib else None)
+                library_ms=min(lib) if lib else None, max_abs_err=err)
 
 
 def phase_kernel_entry() -> dict:
@@ -681,8 +675,10 @@ def phase_kernel_entry() -> dict:
     each kernel at that script's shape (and one larger shape for the first
     two) timed in turns with its plain version, beside its bound and its
     library call.  The launch counts are set to 0 before and read after;
-    each kernel must have launched, and each output is checked for shape,
-    dtype and finite values."""
+    each kernel must have launched.  Each output is held against the plain
+    version's on the same inputs, at the tolerances of the kernel checks
+    (``_mlstm_compare`` for the mLSTM chunk), and checked for shape, dtype
+    and finite values."""
     from repro_torch.kernels import bounds
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -696,12 +692,18 @@ def phase_kernel_entry() -> dict:
         fn.launches = 0
     out = {}
 
-    def finite(y, like):
-        if y.shape != like.shape or y.dtype != like.dtype \
+    def held(label, y, want, like):
+        """y against the plain version's ``want`` at the kernel checks'
+        tolerance; returns the largest abs error."""
+        ok, err = _within(y, want, ATTN_TOL[like.dtype])
+        if not ok or y.shape != like.shape or y.dtype != like.dtype \
                 or not bool(torch.isfinite(y).all()):
-            raise AssertionError(f"kernel entry: output {tuple(y.shape)} "
-                                 f"{y.dtype} is not finite or not shaped "
-                                 f"as {tuple(like.shape)} {like.dtype}")
+            raise AssertionError(f"kernel entry {label}: output "
+                                 f"{tuple(y.shape)} {y.dtype} is not finite, "
+                                 f"not shaped as {tuple(like.shape)} "
+                                 f"{like.dtype} or off the plain version "
+                                 f"(max abs err {err})")
+        return err
 
     for label, (N, d), dtype, iters in (
             ("rmsnorm", (1024, 512), torch.float32, 2000),
@@ -715,12 +717,12 @@ def phase_kernel_entry() -> dict:
         lib = [_time_ms(lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6),
                         iters) for _ in range(2)]
         y = rmsnorm(x, scale)
-        finite(y, x)
+        err = held(label, y, rmsnorm_ref(x, scale), x)
         lib_err = float((F.rms_norm(x, (d,), weight=weight, eps=1e-6).float()
                          - y.float()).abs().max())
         bound, by = bounds.rmsnorm(N, d, x.element_size())
         out[label] = _timed_row(f"{label} N={N} d={d} {_dt(dtype)}", ks, ps,
-                                lib, bound, by, (N, d), dtype, lib_err)
+                                lib, bound, by, (N, d), dtype, err, lib_err)
         del x, scale, weight, y
     for label, (B, H, KV, S, dh), dtype, iters in (
             ("flash_attention", (1, 4, 2, 256, 64), torch.float32, 500),
@@ -733,7 +735,7 @@ def phase_kernel_entry() -> dict:
             q, k, v, is_causal=True, enable_gqa=True), iters)
             for _ in range(2)]
         y = flash_attention(q, k, v)
-        finite(y, q)
+        err = held(label, y, flash_attention_ref(q, k, v), q)
         lib_err = float((F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True).float()
             - y.float()).abs().max())
@@ -742,20 +744,20 @@ def phase_kernel_entry() -> dict:
         out[label] = _timed_row(
             f"{label} B={B} H={H} KV={KV} S={S} dh={dh} causal "
             f"{_dt(dtype)}", ks, ps, lib, bound, by, (B, H, KV, S, dh),
-            dtype, lib_err)
+            dtype, err, lib_err)
         del q, k, v, y
     B, H, L, dh = 2, 4, 128, 64
     args = _mlstm_inputs(B, H, L, dh, torch.float32, 900, state=False)
     ks, ps = _time_pair(lambda: mlstm_chunk(*args),
                         lambda: mlstm_chunk_ref(*args), 500)
-    y = mlstm_chunk(*args)
-    finite(y[0], args[0])
-    for t, like in zip(y[1:], args[5:]):
-        finite(t, like)
+    label = f"B={B} H={H} L={L} dh={dh} fp32 fresh"
+    err = _mlstm_compare(f"{label} (kernel entry)", mlstm_chunk(*args),
+                         mlstm_chunk_ref(*args), MLSTM_TOL[torch.float32],
+                         *_mlstm_witness(args))
     bound, by = bounds.mlstm_chunk(B, H, L, dh, 4)
-    out["mlstm_chunk"] = _timed_row(
-        f"mlstm_chunk B={B} H={H} L={L} dh={dh} fp32", ks, ps, None, bound,
-        by, (B, H, L, dh), torch.float32)
+    out["mlstm_chunk"] = _timed_row(f"mlstm_chunk {label}", ks, ps, None,
+                                    bound, by, (B, H, L, dh), torch.float32,
+                                    err)
     launches = {fn.__name__: fn.launches for fn in fns}
     print(f"[timing] kernel entry launches {launches}")
     if not all(launches.values()):
@@ -1338,7 +1340,10 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{kname}/{kname}.cu",
             "replaces": f"src/repro/kernels/{kname}/kernel.py:{line}",
             "launches": entry["launches"][kname],
-            "max_abs_err": new_errs[kname], **numbers(kname, entry),
+            "max_abs_err": max(new_errs[kname],
+                               *(entry[key]["max_abs_err"] for key in
+                                 (kname, larger.get(kname)) if key)),
+            **numbers(kname, entry),
             "launches_by_path": {"kernel checks": check_launches[kname],
                                  "timing": entry["launches"][kname]}}
         if kname in larger:

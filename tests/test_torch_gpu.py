@@ -70,7 +70,9 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device):
 def test_mlstm_chunk_kernel_matches_plain_on_card(cuda_device):
     """chip_smoke.py's mLSTM-chunk check under pytest: the JAX kernel
     tests' sweep and the kernel benchmark's shape, fresh and with a state,
-    fp32 and bf16, and two chunks chained (C1, n1, m1 at fp32 2e-5 / bf16
-    8e-2 / chained 2e-4; h at the same tolerance times its row's
-    condition number); the check raises on any disagreement."""
+    fp32 and bf16, and two chunks chained (C1, n1, m1 and bf16 h against
+    the plain version at fp32 2e-5 / bf16 8e-2 / chained 2e-4; fp32 h
+    against the plain version in float64 at the tolerance times its row's
+    condition number, capped at 16); the check raises on any
+    disagreement."""
     assert math.isfinite(_chip_smoke().check_mlstm_chunk(verbose=False))

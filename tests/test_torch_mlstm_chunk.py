@@ -131,6 +131,24 @@ def test_plain_version_runs_in_float64_for_float64_inputs():
                                    rtol=2e-5)
 
 
+def test_condition_number_of_the_normaliser():
+    """``mlstm_chunk_condition``, which scales the card check's fp32 h
+    tolerance: 1 on a chunk whose normaliser cannot cancel (q, k, n0 all
+    nonnegative), at least 1 and finite on random inputs, and above 1
+    somewhere in the JAX sweep's (2, 2, 32, 32), where the normaliser's
+    summands cancel."""
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_condition
+    q, k, _, i_pre, f_pre, _, n0, m0 = (torch.from_numpy(a) for a in
+                                        _inputs(2, 2, 32, 32, seed=12))
+    kappa = mlstm_chunk_condition(q, k, i_pre, f_pre, n0, m0)
+    assert kappa.shape == (2, 2, 32) and kappa.dtype == torch.float64
+    assert bool(torch.isfinite(kappa).all()) and bool((kappa >= 1).all())
+    assert float(kappa.max()) > 1.0
+    ones = mlstm_chunk_condition(q.abs(), k.abs(), i_pre, f_pre, n0.abs(),
+                                 m0)
+    np.testing.assert_allclose(ones.numpy(), 1.0, rtol=1e-12)
+
+
 def test_cpu_tensor_never_loads_the_kernel(monkeypatch):
     def refuse(_source):
         raise AssertionError("a CPU tensor must not build or load the "
