@@ -7,24 +7,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   — require a CUDA device; print its name, count, power limit and
               the fp32 matmul precision (TF32 is switched off);
 2. build    — build the five CUDA kernels from the sources in this
-              checkout, one ``nvcc`` per source, all started together, and
-              print each one's ptxas summary;
+              checkout, one ``nvcc`` per source, all started together;
+              print each one's ptxas summary and how many tensor-core
+              instructions (HGMMA, HMMA) the flash-attention library's SASS
+              holds, and fail if it holds none;
 3. kernel   — hold each kernel against its plain PyTorch version on the
               card: the exit kernel at the classifier path's shapes, a
               ragged several-slab vocab, the qwen3-4b exit head in fp32 and
-              bf16 and exact ties; the decode-attention kernel at the decode
-              path's shapes in bf16 and fp32 with ragged positions,
-              unwritten slots, a ring, a window and a row with no valid slot;
+              bf16 and exact ties; the decode-attention kernels at the decode
+              path's shapes and S 4096 in bf16 and fp32 with ragged
+              positions, unwritten slots, a ring (one whose valid slots
+              straddle a split), a window and a row with no valid slot, and
+              each row of a B 8 launch bitwise against its launch alone;
               RMSNorm, flash attention and the mLSTM chunk at the JAX kernel
               tests' sweeps and the kernel benchmark's shapes in fp32 and
               bf16 (RMSNorm also at qwen3-4b's width; flash attention also
               with a window and no causal mask, window 0, a ragged S and
-              qwen3-4b's heads; the mLSTM chunk fresh and with a state, and
-              two chunks chained);
+              qwen3-4b's heads, and in bf16 at S 2048 / 2047 with a window
+              and without the causal mask; the mLSTM chunk fresh and with a
+              state, and two chunks chained);
 4. timing   — CUDA-event times of each kernel and its plain version beside
               the bound, and of its library call where one PyTorch call
               computes the same function (``scaled_dot_product_attention``
-              for both attention kernels, ``rms_norm``); for RMSNorm, flash
+              for both attention kernels, ``rms_norm``), each timed output
+              held against its plain version; for RMSNorm, flash
               attention and the mLSTM chunk this is their main path, the
               kernel entry point at ``benchmarks/bench_kernels.py``'s shapes
               (plus one larger shape each for the first two), with the
@@ -61,6 +67,7 @@ import importlib
 import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -138,8 +145,25 @@ KERNELS = ("exit_confidence", "decode_attention", "rmsnorm",
            "flash_attention", "mlstm_chunk")
 
 
-def phase_build() -> None:
-    """Build every kernel library at once (one nvcc per source)."""
+def _sass_counts(library) -> dict:
+    """How many tensor-core instructions the library's SASS holds
+    (``cuobjdump -sass``): HGMMA (Hopper's warpgroup ``wgmma``) and HMMA
+    (``mma.sync``), beside the fp32 FFMAs."""
+    from repro_torch.kernels import build
+    cuobjdump = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    ops = [m.group(1).split(".")[0] for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", sass)]
+    return {op: ops.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
+
+
+def phase_build() -> dict:
+    """Build every kernel library at once (one nvcc per source); return the
+    flash-attention library's SASS counts, which must show tensor-core
+    instructions (the bf16 kernel's products)."""
+    from repro_torch.kernels import build
     mods = {name: importlib.import_module(f"repro_torch.kernels.{name}.ops")
             for name in KERNELS}
     t0 = time.perf_counter()
@@ -150,6 +174,13 @@ def phase_build() -> None:
     print(f"[build] {len(logs)} kernels: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"[build] {name}: {_ptxas_summary(log)}")
+    sass = _sass_counts(build.library_path(mods["flash_attention"].SOURCE))
+    print(f"[build] flash_attention SASS: {sass['HGMMA']} HGMMA, "
+          f"{sass['HMMA']} HMMA, {sass['FFMA']} FFMA (the fp32 kernel)")
+    if not sass["HGMMA"] + sass["HMMA"]:
+        raise AssertionError("flash_attention: the library holds no "
+                             "tensor-core instruction")
+    return sass
 
 
 def _exit_inputs(n, d, v, seed, *, ties=(), dtype=torch.float32):
@@ -258,23 +289,26 @@ def _within_rows(got, want, tol):
 
 
 def _decode_inputs(B, S, dtype, seed, *, heads=QWEN3_4B_ATTN, ring=False,
-                   empty_row=False):
+                   ring_at=None, empty_row=False):
     """q, k, v, slot_pos, cur_pos on the card, from ``seed``.
 
     Row b holds positions 0..len_b-1 (ragged lengths in [1, S], the other
     slots unwritten, -1) and decodes at cur_pos = len_b - 1.  ``ring``: row
     b has run P_b in (S, 2S] tokens through S slots, so slot j holds
     position j + S where j < P_b - S (non-monotonic slot_pos), at cur_pos
-    P_b - 1.  ``empty_row``: row 0 has no written slot."""
+    P_b - 1; ``ring_at``: P_b = S + ring_at + b instead of a random one.
+    ``empty_row``: row 0 has no written slot."""
     H, KV, dh = heads
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, dh, generator=g)
     k = torch.randn(B, KV, S, dh, generator=g)
     v = torch.randn(B, KV, S, dh, generator=g)
     slots = torch.arange(S, dtype=torch.int32).expand(B, S).clone()
-    if ring:
+    if ring or ring_at is not None:
         P = torch.randint(S + 1, 2 * S + 1, (B,), generator=g,
                           dtype=torch.int32)
+        if ring_at is not None:
+            P = S + ring_at + torch.arange(B, dtype=torch.int32)
         slot_pos = torch.where(slots < (P - S)[:, None], slots + S, slots)
         cur = P - 1
     else:
@@ -292,12 +326,19 @@ def check_decode_attention(verbose: bool = True) -> float:
     """Kernel against plain version at the decode path's shapes (B 1, 2,
     4, 8; qwen3-4b's heads; both length buckets) in bf16 and fp32, with
     ragged positions and unwritten slots, a ring, window 8 and a row with
-    no valid slot, plus smaller head dims and GQA ratios.  Returns the
-    largest abs error; raises on any disagreement."""
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    no valid slot, plus smaller head dims and GQA ratios; S 4096 with
+    ragged rows and a ring whose valid slots (window 16) straddle a split
+    boundary; then, at B 8 and S 4096, each row of the batched launch
+    against the row launched alone, bitwise.  Returns the largest abs
+    error; raises on any disagreement."""
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          split_slots)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     cases = [(f"path B={b} S={s}", b, s, {}, {})
-             for s in LEN_BUCKETS for b in BATCH_BUCKETS]
+             for s in LEN_BUCKETS + (4096,) for b in BATCH_BUCKETS]
+    # positions P - 16 .. P - 1 sit in slots SPLIT - 6 + b .. SPLIT + 9 + b
+    cases += [("ring across a split, window 16 B=4 S=4096", 4, 4096,
+               {"ring_at": split_slots(4096) + 10}, {"window": 16})]
     cases += [("ring B=4 S=256", 4, 256, {"ring": True}, {}),
               ("window 8 B=8 S=1024", 8, 1024, {}, {"window": 8}),
               ("ring + window 8 B=2 S=256", 2, 256, {"ring": True},
@@ -335,6 +376,23 @@ def check_decode_attention(verbose: bool = True) -> float:
                                      f"kernel disagrees with the plain "
                                      f"version (max abs err {err})")
             worst = max(worst, err)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _decode_inputs(8, 4096, dtype, seed=100)
+        batched = decode_attention(*args)
+        alone = [decode_attention(*(t[b:b + 1] for t in args))
+                 for b in range(8)]
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(batched[b], alone[b][0])) for b in range(8)]
+        if verbose:
+            print(f"[kernel] decode_attention B=8 S=4096 {_dt(dtype)} "
+                  f"(lengths {(args[3] >= 0).sum(1).tolist()}): each row "
+                  f"of the batched launch equals its launch alone bitwise: "
+                  f"{all(same)}")
+        if not all(same):
+            raise AssertionError(f"decode_attention {dtype}: rows "
+                                 f"{[b for b in range(8) if not same[b]]} "
+                                 "of the batched launch differ from their "
+                                 "launches alone")
     return worst
 
 
@@ -397,10 +455,15 @@ def check_flash_attention(verbose: bool = True) -> float:
     benchmark's shape, no causal mask with window 8, window 0 (rows with
     no visible key all zeros),
     ragged S, qwen3-4b's heads (H 32, KV 8, dh 128) and more than 8 query
-    heads per KV head, in fp32 and bf16.  Returns the largest abs error;
-    raises on any disagreement."""
+    heads per KV head, in fp32 and bf16; then, in bf16 at qwen3-4b's heads,
+    S 2048 causal with window 128, S 2047 causal and S 2048 without the
+    causal mask, each also against the plain model of the bf16 kernel's
+    numerics (P rounded to bf16, ``flash_attention_ref_bf16_p``).  Returns
+    the largest abs error against the plain version; raises on any
+    disagreement."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, flash_attention_ref_bf16_p)
     sweep = [(1, 2, 2, 32, 16), (2, 4, 2, 64, 32), (1, 8, 1, 128, 64),
              (2, 6, 2, 48, 32)]
     cases = [(sh, {"causal": c, "window": w}) for sh in sweep
@@ -444,6 +507,31 @@ def check_flash_attention(verbose: bool = True) -> float:
                                      "disagrees with the plain version (max "
                                      f"abs err {err})")
             worst = max(worst, err)
+    tol = ATTN_TOL[torch.bfloat16]
+    for (B, H, KV, S, dh), kw in (
+            ((1, 32, 8, 2048, 128), {"causal": True, "window": 128}),
+            ((1, 32, 8, 2047, 128), {"causal": True, "window": None}),
+            ((1, 32, 8, 2048, 128), {"causal": False, "window": None})):
+        i += 1
+        q, k, v = _attn_inputs(B, H, KV, S, dh, torch.bfloat16, seed=400 + i)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err = _within(got, flash_attention_ref(q, k, v, **kw), tol)
+        ok_p, err_p = _within(got, flash_attention_ref_bf16_p(q, k, v, **kw),
+                              tol)
+        torch.cuda.synchronize()
+        label = (f"B={B} H={H} KV={KV} S={S} dh={dh} causal {kw['causal']} "
+                 f"window {kw['window']} bfloat16")
+        if verbose:
+            print(f"[kernel] flash_attention {label}: max abs err {err:.3e} "
+                  f"(to the bf16-P model {err_p:.3e}; tol {tol:g})")
+        if not (ok and ok_p) or got.shape != q.shape \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {label}: kernel "
+                                 "disagrees with the plain version (max abs "
+                                 f"err {err}, to the bf16-P model {err_p})")
+        worst = max(worst, err)
+        del q, k, v, got
     return worst
 
 
@@ -583,6 +671,31 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _device_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times between CUDA events, so the
+    host's cost of a call (Python, checks, launch) is not in the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (n * reps)
+
+
 def _sdpa(q, k, v, slot_pos, cur_pos):
     """The library call that computes decode attention's function: one
     ``scaled_dot_product_attention`` with the same per-row mask and GQA
@@ -604,8 +717,13 @@ def _time_pair(kernel, plain, iters):
 def phase_timing() -> dict:
     """Kernel, plain version (and library call) timed in turns; each beside
     its bound from ``repro_torch.kernels.bounds`` (HBM bytes or fp32
-    flops at the published H100 SXM peaks)."""
+    flops at the published H100 SXM peaks).  Decode attention at B 8 with
+    S 1024 and 4096 and at B 1 with S 1024, every slot valid; its timed
+    outputs are held against the plain version, and the split length the
+    wrapper does not take at that S is timed beside the one it takes, and
+    both are timed again as device time alone (``_device_ms``)."""
     from repro_torch.kernels import bounds
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.exit_confidence.ops import exit_confidence
@@ -627,8 +745,8 @@ def phase_timing() -> dict:
               f"{ks[0]:.5f}/{ks[1]:.5f} ms, plain {ps[0]:.5f}/{ps[1]:.5f} "
               f"ms, bound {bound:.6f} ms ({by})")
         del h, scale, w
-    for S in (1024, 4096):
-        B = 8
+    tol = ATTN_TOL[torch.bfloat16]
+    for B, S in ((8, 1024), (8, 4096), (1, 1024)):
         g = torch.Generator().manual_seed(200 + S)
         H, KV, dh = QWEN3_4B_ATTN
         q, k, v = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
@@ -640,19 +758,46 @@ def phase_timing() -> dict:
         ks, ps = _time_pair(lambda: decode_attention(*args),
                             lambda: decode_attention_ref(*args), 200)
         lib = [_time_ms(lambda: _sdpa(*args), 200) for _ in range(2)]
-        lib_err = float((_sdpa(*args).float()
-                         - decode_attention(*args).float()).abs().max())
+        # the split length the wrapper does not take at this S, timed
+        # beside the one it takes
+        split = decode_ops.split_slots(S)
+        other = 384 - split
+        alt = [_time_ms(lambda: decode_ops.launch(
+            *args, window=None, softmax_scale=None, split=other), 200)
+            for _ in range(2)]
+        y = decode_attention(*args)
+        ok, err = _within(y, decode_attention_ref(*args), tol)
+        ok_alt, err_alt = _within(decode_ops.launch(
+            *args, window=None, softmax_scale=None, split=other), y, tol)
+        # device time alone (graph replay), both split lengths
+        dev = {sp: _device_ms(lambda: decode_ops.launch(
+            *args, window=None, softmax_scale=None, split=sp))
+            for sp in (split, other)}
+        lib_err = float((_sdpa(*args).float() - y.float()).abs().max())
+        if not (ok and ok_alt) or y.shape != q.shape \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"decode_attention B={B} S={S}: the timed "
+                                 "output is off the plain version (max abs "
+                                 f"err {err}; split {other} to the kernel "
+                                 f"{err_alt})")
         # every slot is valid here, so the function needs the whole cache
         bound, by = bounds.decode_attention(B, H, KV, S, dh, itemsize=2)
-        out[f"decode S={S}"] = dict(
+        out[f"decode B={B} S={S}"] = dict(
             shape=[B, H, KV, S, dh], dtype="torch.bfloat16", ms=min(ks),
             plain_ms=min(ps), bound_ms=bound, bound_by=by,
-            library_ms=min(lib))
+            library_ms=min(lib), max_abs_err=err,
+            split_slots=split, other_split_ms={other: min(alt)},
+            device_ms=dev)
         print(f"[timing] decode_attention B={B} H={H} KV={KV} S={S} "
-              f"dh={dh} bf16: kernel {ks[0]:.5f}/{ks[1]:.5f} ms, plain "
-              f"{ps[0]:.5f}/{ps[1]:.5f} ms, sdpa {lib[0]:.5f}/{lib[1]:.5f} "
-              f"ms (max abs diff to the kernel {lib_err:.3e}), bound "
-              f"{bound:.6f} ms ({by})")
+              f"dh={dh} bf16: kernel {ks[0]:.5f}/{ks[1]:.5f} ms (split "
+              f"{split}; max abs err to the plain version "
+              f"{err:.3e}), split {other} {alt[0]:.5f}/{alt[1]:.5f} ms, "
+              f"device time alone (graph replay) split {split} "
+              f"{dev[split]:.5f} ms, split {other} {dev[other]:.5f} ms, "
+              f"plain {ps[0]:.5f}/{ps[1]:.5f} ms, sdpa "
+              f"{lib[0]:.5f}/{lib[1]:.5f} ms (max abs diff to the kernel "
+              f"{lib_err:.3e}), bound {bound:.6f} ms ({by})")
+        del q, k, v, slot_pos, args, y
     return out
 
 
@@ -1293,7 +1438,7 @@ def check_new_kernels() -> tuple:
 def main() -> int:
     name, smi = phase_device()
     _import_port()
-    phase_build()
+    sass = phase_build()
     exit_err = check_exit_confidence()
     attn_err = check_decode_attention()
     new_errs, check_launches = check_new_kernels()
@@ -1325,11 +1470,20 @@ def main() -> int:
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:62",
         "launches": decode["attn_launches"], "max_abs_err": attn_err,
-        **numbers("decode S=1024"),
+        **numbers("decode B=8 S=1024"),
         "launches_by_path": {"decode serve": decode["attn_launches"],
                              "launcher": launcher["launches"],
                              "launcher, mixed depths": mixed["launches"]},
-        "s4096": numbers("decode S=4096"),
+        "s4096": numbers("decode B=8 S=4096"),
+        "b1_s1024": numbers("decode B=1 S=1024"),
+        "split_slots_and_other_split_ms": {
+            key: [timing[key]["split_slots"], timing[key]["other_split_ms"]]
+            for key in ("decode B=8 S=1024", "decode B=8 S=4096",
+                        "decode B=1 S=1024")},
+        "device_ms_by_split": {
+            key: timing[key]["device_ms"]
+            for key in ("decode B=8 S=1024", "decode B=8 S=4096",
+                        "decode B=1 S=1024")},
     }]
     larger = {"rmsnorm": "rmsnorm qwen3-4b width",
               "flash_attention": "flash_attention qwen3-4b heads"}
@@ -1348,6 +1502,8 @@ def main() -> int:
                                  "timing": entry["launches"][kname]}}
         if kname in larger:
             row["larger_shape"] = numbers(larger[kname], entry)
+        if kname == "flash_attention":
+            row["sass"] = sass
         kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))

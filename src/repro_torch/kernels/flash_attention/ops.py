@@ -1,12 +1,20 @@
-"""Wrapper of the flash-attention CUDA kernel.
+"""Wrapper of the flash-attention CUDA kernels.
 
 ``flash_attention(q, k, v, causal=True, window=None, softmax_scale=None)``
 dispatches on the tensors' device: CPU tensors take the plain version
-(``ref.py``); CUDA tensors launch the kernel (``flash_attention.cu``, built
-at first use) or raise.  Nothing falls back from one to the other.  The
-JAX function's ``block_q`` / ``block_k`` are tile choices, not semantics:
-the kernel picks its own tiles.  ``flash_attention.launches`` counts kernel
-launches (plain-version calls do not count).
+(``ref.py``); CUDA tensors launch a kernel of ``flash_attention.cu``
+(built at first use) or raise.  Nothing falls back from one to the other.
+
+bf16 tensors launch the tensor-core kernel: blocks of 128 query rows of
+one head (two warpgroups), K and V tiles brought by TMA into a
+shared-memory ring, both products on ``wgmma`` with fp32 accumulators;
+P is rounded to bf16 for the P V product (``ref.py``'s
+``flash_attention_ref_bf16_p`` models that).  At prefill lengths the bf16
+tensor-core rate bounds it.  fp32 tensors launch the fp32 kernel, whose
+products run on the CUDA cores.  The JAX function's ``block_q`` /
+``block_k`` are tile choices, not semantics: the kernels pick their own
+tiles.  ``flash_attention.launches`` counts kernel launches (plain-version
+calls do not count).
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ SOURCE = pathlib.Path(__file__).with_name("flash_attention.cu")
 DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the kernel is built for
 KERNEL_DIMS = (16, 32, 64, 128)
+#: query rows of a bf16 (tensor-core) block; its grid has ceil(S / 128)
+#: rows, at most 65535
+BF16_BLOCK_Q = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,8 +53,9 @@ def check(q, k, v, window, *, kernel=False):
     """Raise on anything the wrapper does not take: q (B, H, S, dh), k and
     v (B, KV, S, dh) with H % KV == 0, one dtype (fp32 or bf16), contiguous,
     on one device; window None or >= 0.  ``kernel``: also what only the
-    CUDA kernel needs (dh in ``KERNEL_DIMS``, B * KV < 65536, 16-byte
-    aligned tensors)."""
+    CUDA kernels need (dh in ``KERNEL_DIMS``, B * KV < 65536, 16-byte
+    aligned tensors, which the TMA loads of the bf16 kernel need too, and
+    in bf16 ceil(S / 128) < 65536)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES:
             raise TypeError(f"flash_attention: {name} must be one of "
@@ -77,6 +89,9 @@ def check(q, k, v, window, *, kernel=False):
         if B * KV > 65535:
             raise ValueError(f"flash_attention: B * KV = {B * KV} exceeds "
                              "the kernel's grid (65535)")
+        if q.dtype == torch.bfloat16 and -(-S // BF16_BLOCK_Q) > 65535:
+            raise ValueError(f"flash_attention: S = {S} exceeds the bf16 "
+                             f"kernel's grid ({65535 * BF16_BLOCK_Q})")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention: q, k and v must start on a "
                              "16-byte boundary")
@@ -91,13 +106,12 @@ def flash_attention(q, k, v, *, causal=True, window=None,
     contiguous, on one device.  ``causal`` masks keys after the query;
     ``window`` keeps keys with ``q - k < window``.  Returns (B, H, S, dh)
     in q's dtype; a row with no visible key is zeros."""
-    check(q, k, v, window)
+    check(q, k, v, window, kernel=q.device.type == "cuda")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softmax_scale=softmax_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    check(q, k, v, window, kernel=True)
     lib, _ = load_library()
     B, H, S, dh = q.shape
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5

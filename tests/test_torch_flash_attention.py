@@ -7,10 +7,13 @@ run it) and, where every query sees a key, to the JAX
 ``flash_attention_ref``: a subset of ``tests/test_kernels.py``'s sweep
 (MHA in fp32, GQA 3:1 with S ragged against the block in fp32 and bf16;
 causal, not causal, causal with window 16), no causal mask with window 8,
-window 0, and the JAX kernel's results across its block shapes.
-Tolerances are those of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2
-(atol = rtol).  The CUDA kernel itself is held to the plain version on the
-card by ``tests/test_torch_gpu.py``.
+window 0, and the JAX kernel's results across its block shapes.  The
+bf16 CUDA kernel rounds P to bf16 for its P V product; its plain model,
+``flash_attention_ref_bf16_p``, is held to the Pallas kernel (which
+multiplies an fp32 P) over the bf16 sweep.  Tolerances are those of
+``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2 (atol = rtol).  The CUDA
+kernels themselves are held to the plain version on the card by
+``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +25,8 @@ from repro.kernels.flash_attention import flash_attention_ref as jax_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_ref_bf16_p)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -146,3 +151,60 @@ def test_kernel_check_rejects_an_unsupported_head_dim():
     with pytest.raises(ValueError, match="head dim 24"):
         ops.check(q, k, v, None, kernel=True)
     assert flash_attention(q, k, v).shape == q.shape
+
+
+@pytest.mark.parametrize("B,H,KV,S,dh", [
+    (2, 6, 2, 48, 32),                   # GQA 3:1, ragged seq vs block
+    (1, 8, 1, 128, 64),
+    (1, 4, 2, 72, 128),                  # qwen3-4b's head dim, S ragged
+])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 16), (False, 8)])
+def test_bf16_p_model_matches_jax_kernel(B, H, KV, S, dh, causal, window):
+    """The bf16 kernel's numerics (P rounded to bf16 before P V) against the
+    Pallas kernel, which multiplies an fp32 P, at the bf16 tolerance, on
+    bf16 inputs."""
+    arrays = _inputs(B, H, KV, S, dh, seed=4)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrays)
+    model = flash_attention_ref_bf16_p(tq, tk, tv, causal=causal,
+                                       window=window)
+    assert model.dtype == torch.bfloat16 and model.shape == tq.shape
+    ref = jax_kernel(*_jax(arrays, "bfloat16"), causal=causal,
+                     window=window, block_q=64, block_k=64)
+    np.testing.assert_allclose(model.float().numpy(),
+                               np.asarray(ref, np.float32), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_bf16_p_rounding_is_the_only_difference_in_fp32():
+    """On fp32 inputs the model differs from the plain version only by P's
+    rounding: by at most a bf16 step of P (2^-8 relative) times the
+    largest |v|, and not by nothing."""
+    arrays = _inputs(1, 4, 2, 100, 64, seed=5)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    diff = (flash_attention_ref_bf16_p(q, k, v)
+            - flash_attention_ref(q, k, v)).abs().max()
+    assert 0 < float(diff) <= 2.0 ** -8 * float(v.abs().max())
+
+
+def test_bf16_p_model_window_zero_gives_zeros():
+    arrays = _inputs(1, 2, 1, 16, 8, seed=2)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    assert not flash_attention_ref_bf16_p(q, k, v, causal=True,
+                                          window=0).any()
+
+
+def test_kernel_check_rejects_a_misaligned_tensor():
+    """The kernels' 16-byte alignment (the bf16 kernel's TMA loads need
+    it), checked without a card; the plain version takes the tensor."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(1, 2, 1, 8, 16, 0))
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    ops.check(q, k, v, None, kernel=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.check(shifted, k, v, None, kernel=True)
+    assert torch.equal(flash_attention(shifted, k, v), flash_attention(q, k,
+                                                                       v))

@@ -41,10 +41,12 @@ def test_exit_confidence_kernel_matches_plain_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_decode_attention_kernel_matches_plain_on_card(cuda_device):
-    """chip_smoke.py's decode-kernel check under pytest: the CUDA kernel
-    against its plain version at the decode path's shapes in bf16 and fp32,
-    with ragged positions, unwritten slots, a ring, window 8 and a row with
-    no valid slot (atol = rtol = fp32 2e-5, bf16 2e-2)."""
+    """chip_smoke.py's decode-kernel check under pytest: the CUDA kernels
+    against their plain version at the decode path's shapes and S 4096 in
+    bf16 and fp32, with ragged positions, unwritten slots, a ring (one
+    straddling a split), window 8 and a row with no valid slot (atol = rtol
+    = fp32 2e-5, bf16 2e-2), and each row of a B 8 launch bitwise against
+    its launch alone."""
     assert _chip_smoke().check_decode_attention(verbose=False) <= 2e-2
 
 
@@ -62,7 +64,9 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device):
     """chip_smoke.py's flash-attention check under pytest: the JAX kernel
     tests' sweep, the kernel benchmark's shape, windows with and without
     the causal mask, window 0 (zeros), a ragged S and qwen3-4b's heads,
-    fp32 and bf16 (atol = rtol = fp32 2e-5, bf16 2e-2)."""
+    fp32 and bf16, and in bf16 at S 2048 / 2047 with a window and without
+    the causal mask, also against the bf16-P model (atol = rtol = fp32
+    2e-5, bf16 2e-2)."""
     assert _chip_smoke().check_flash_attention(verbose=False) <= 2e-2
 
 
