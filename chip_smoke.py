@@ -21,11 +21,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               each row of a B 8 launch bitwise against its launch alone;
               RMSNorm, flash attention and the mLSTM chunk at the JAX kernel
               tests' sweeps and the kernel benchmark's shapes in fp32 and
-              bf16 (RMSNorm also at qwen3-4b's width; flash attention also
-              with a window and no causal mask, window 0, a ragged S and
-              qwen3-4b's heads, and in bf16 at S 2048 / 2047 with a window
-              and without the causal mask; the mLSTM chunk fresh and with a
-              state, and two chunks chained);
+              bf16 (RMSNorm also at qwen3-4b's width, N 1 and 3, and the
+              widths at both edges of each path of ``ops.plan``; flash
+              attention also with a window and no causal mask, window 0, a
+              ragged S and qwen3-4b's heads, and in bf16 at S 2048 / 2047
+              with a window and without the causal mask; the mLSTM chunk at
+              dh 128, xlstm-1.3b's dh 1024, L 256, 200 and 512 and dh 72,
+              fresh and with a state, and two chunks chained at dh 64 and
+              128);
 4. timing   — CUDA-event times of each kernel and its plain version beside
               the bound, and of its library call where one PyTorch call
               computes the same function (``scaled_dot_product_attention``
@@ -33,9 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               held against its plain version; for RMSNorm, flash
               attention and the mLSTM chunk this is their main path, the
               kernel entry point at ``benchmarks/bench_kernels.py``'s shapes
-              (plus one larger shape each for the first two), with the
-              launch counts set to 0 before it and read after, and each
-              output held against its plain version on the same inputs;
+              (plus one larger shape each: RMSNorm 16384 x 2560 bf16,
+              flash attention at qwen3-4b's heads, the mLSTM chunk at
+              xlstm-1.3b's heads), RMSNorm and the mLSTM chunk also as
+              device time alone (CUDA-graph replay, RMSNorm beside
+              ``F.rms_norm``'s), with the launch counts set to 0 before it
+              and read after, and each output held against its plain
+              version on the same inputs;
 5. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
               full width (random weights from seed 0), 120 requests from 8
               clients on the wall clock with two stacked device windows, with
@@ -141,6 +148,20 @@ def _ptxas_summary(log: str) -> str:
             f"{'no spills' if not any(spills) else f'spills {spills}'}")
 
 
+def _spills(log: str) -> dict:
+    """{kernel's mangled name: bytes of spill stores} from ptxas's -v
+    report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = int(m.group(1))
+    return out
+
+
 KERNELS = ("exit_confidence", "decode_attention", "rmsnorm",
            "flash_attention", "mlstm_chunk")
 
@@ -160,7 +181,8 @@ def _sass_counts(library) -> dict:
 
 
 def phase_build() -> dict:
-    """Build every kernel library at once (one nvcc per source); return the
+    """Build every kernel library at once (one nvcc per source); fail if
+    ptxas spills in an RMSNorm register-path kernel; return the
     flash-attention library's SASS counts, which must show tensor-core
     instructions (the bf16 kernel's products)."""
     from repro_torch.kernels import build
@@ -174,6 +196,12 @@ def phase_build() -> dict:
     print(f"[build] {len(logs)} kernels: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"[build] {name}: {_ptxas_summary(log)}")
+    # RMSNorm's warp and block paths hold the row in registers: no spills
+    rows = {k: v for k, v in _spills(logs["rmsnorm"]).items()
+            if "rmsnorm_rows" in k}
+    if logs["rmsnorm"] and (not rows or any(rows.values())):
+        raise AssertionError(f"rmsnorm: ptxas spills on the register "
+                             f"paths: {rows}")
     sass = _sass_counts(build.library_path(mods["flash_attention"].SOURCE))
     print(f"[build] flash_attention SASS: {sass['HGMMA']} HGMMA, "
           f"{sass['HMMA']} HMMA, {sass['FFMA']} FFMA (the fp32 kernel)")
@@ -404,26 +432,75 @@ def _dt(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _rmsnorm_widths(itemsize):
+    """(N, d, path) at both edges of each path of the kernel for x of
+    ``itemsize`` bytes: the warp path's largest K and one 16-byte chunk
+    above it (the block path), d 4096 and 8192, N 1 and 3 at qwen3-4b's
+    width 2560, a ragged width (the loop path, one value a lane) and the
+    block path's widest row plus a chunk (the loop path, 16 bytes a
+    lane)."""
+    from repro_torch.kernels.rmsnorm import ops
+    vec = ops.vector(itemsize)
+    top, wide = ops.warp_max_d(itemsize), ops.block_max_d(itemsize)
+    return [(5, top, "warp"), (5, top + vec, "block"), (4, 4096, "block"),
+            (3, 8192, "block"), (1, 2560, None), (3, 2560, None),
+            (7, 2561, "loop"), (3, wide + vec, "loop")]
+
+
 def check_rmsnorm(verbose: bool = True) -> float:
     """Kernel against plain version at ``tests/test_kernels.py``'s sweep
     (N, d of (8, 32), (37, 64), (256, 128), (5, 256)), the kernel
-    benchmark's 1024 x 512, qwen3-4b's width 2560 and widths that take the
-    scalar path, in fp32 and bf16 (scale in x's dtype, and fp32 scale with
-    bf16 x).  Returns the largest abs error; raises on any disagreement."""
+    benchmark's 1024 x 512, qwen3-4b's width 2560, widths that take the
+    scalar path and the edges of each path (``_rmsnorm_widths``, each also
+    checked against the path ``ops.plan`` gives it), in fp32 and bf16
+    (scale in x's dtype, and fp32 scale with bf16 x).  Also holds
+    ``ops.blocks_per_sm`` to the card's occupancy calculator for every K
+    of the warp and block paths: the grid never exceeds what fits at once.
+    Returns the largest abs error; raises on any disagreement."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import ops
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    shapes = [(8, 32), (37, 64), (256, 128), (5, 256), (1024, 512),
-              (37, 2560), (8, 2560), (13, 99), (6, 100)]
+    lib, _ = ops.load_library()
+    sms = build.sm_count(torch.device("cuda", 0))
+    for itemsize, x_bf16 in ((4, 0), (2, 1)):
+        for scale_bf16 in ((0,) if itemsize == 4 else (0, 1)):
+            for path, ks in (("warp", range(1, ops.WARP_K_MAX[itemsize] + 1)),
+                             ("block", ops.BLOCK_KS[itemsize])):
+                fits = {K: lib.rmsnorm_blocks_per_sm(
+                    x_bf16, scale_bf16, ops.PATHS.index(path), K)
+                    for K in ks}
+                short = {K: (ops.blocks_per_sm(path, K, itemsize), n)
+                         for K, n in fits.items()
+                         if n < ops.blocks_per_sm(path, K, itemsize)}
+                if verbose:
+                    print(f"[kernel] rmsnorm {path} path, x {itemsize}-byte,"
+                          f" scale {'bf16' if scale_bf16 else 'fp32'}: "
+                          f"blocks an SM by K {fits}")
+                if short:
+                    raise AssertionError(
+                        f"rmsnorm: ops.blocks_per_sm exceeds what fits an "
+                        f"SM ({path}, itemsize {itemsize}): {short}")
+    base = [(8, 32), (37, 64), (256, 128), (5, 256), (1024, 512), (37, 2560),
+            (8, 2560), (13, 99), (6, 100)]
     worst = 0.0
-    for i, ((N, d), dtype, scale_fp32) in enumerate(
-            [(sh, dt, False) for dt in (torch.float32, torch.bfloat16)
-             for sh in shapes]
-            + [((37, 2560), torch.bfloat16, True),
-               ((13, 100), torch.bfloat16, True)]):
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        edges = _rmsnorm_widths(torch.empty(0, dtype=dt).element_size())
+        cases += [((N, d), dt, False, None) for N, d in base]
+        cases += [((N, d), dt, False, path) for N, d, path in edges]
+    cases += [((37, 2560), torch.bfloat16, True, None),
+              ((13, 100), torch.bfloat16, True, None),
+              ((5, 3080), torch.bfloat16, True, "block")]
+    for i, ((N, d), dtype, scale_fp32, path) in enumerate(cases):
         g = torch.Generator().manual_seed(300 + i)
         x = _randn((N, d), g).to("cuda", dtype)
         scale = _randn((d,), g, 0.1).to(
             "cuda", torch.float32 if scale_fp32 else dtype)
+        p = ops.plan(N, d, x.element_size(), sms)
+        if path is not None and p.path != path:
+            raise AssertionError(f"rmsnorm N={N} d={d} {dtype}: ops.plan "
+                                 f"takes the {p.path} path, not {path}")
         got = rmsnorm(x, scale)
         torch.cuda.synchronize()
         want = rmsnorm_ref(x, scale)
@@ -432,8 +509,9 @@ def check_rmsnorm(verbose: bool = True) -> float:
         ok, err = _within(got, want, tol)
         if verbose:
             print(f"[kernel] rmsnorm N={N} d={d} {_dt(dtype)}"
-                  f"{' (fp32 scale)' if scale_fp32 else ''}: max abs err "
-                  f"{err:.3e} (tol {tol:g})")
+                  f"{' (fp32 scale)' if scale_fp32 else ''} ({p.path} path, "
+                  f"K {p.K}, grid {p.grid}): max abs err {err:.3e} "
+                  f"(tol {tol:g})")
         if not ok or got.dtype != dtype or got.shape != x.shape \
                 or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"rmsnorm N={N} d={d} {dtype}: kernel "
@@ -609,22 +687,53 @@ def _mlstm_witness(args):
             mlstm_chunk_condition(q, k, i_pre, f_pre, n0, m0))
 
 
+MLSTM_SHAPES = [(1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32), (2, 4, 128, 64),
+                (1, 2, 100, 64), (1, 2, 128, 128), (1, 4, 128, 1024),
+                (1, 2, 256, 64), (1, 2, 200, 64), (1, 1, 512, 64),
+                (1, 2, 64, 72)]
+XLSTM_HEAD = (1, 4, 128, 1024)      # xlstm-1.3b's mLSTM heads, one chunk
+# the longest chunk whose fp32 plain version stays within MLSTM_TOL of
+# float64 in C1 and n1 on the card; past it (L 512) the fp32 cumsum of
+# the gates is off by more (``_mlstm_ref64``)
+MLSTM_FP32_REF_MAX_L = 256
+
+
+def _mlstm_ref64(label, args, want32, verbose):
+    """The plain version in float64 on the fp32 ``args``, rounded to fp32:
+    the reference of an fp32 chunk longer than ``MLSTM_FP32_REF_MAX_L``,
+    where the fp32 plain version's own C1 and n1 (a cumsum of L gates in
+    fp32) are off float64 by more than the tolerance.  Prints how far the
+    fp32 plain version is from it, in units of ``MLSTM_TOL``."""
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    ref = tuple(t.float() for t in mlstm_chunk_ref(*(t.double()
+                                                     for t in args)))
+    tol = MLSTM_TOL[torch.float32]
+    off = [float(((a - b).abs() / (tol * (1 + b.abs()))).max())
+           for a, b in zip(want32[1:], ref[1:])]
+    if verbose:
+        print(f"[kernel] mlstm_chunk {label}: reference is the plain version "
+              f"in float64 (the fp32 plain version's C1, n1, m1 are "
+              f"{off[0]:.2f}, {off[1]:.2f}, {off[2]:.2f} tolerances off it)")
+    return ref
+
+
 def check_mlstm_chunk(verbose: bool = True) -> float:
     """Kernel against plain version at ``tests/test_kernels.py``'s sweep
     ((1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32)), the kernel benchmark's
-    B 2, H 4, L 128, dh 64 and a ragged L 100, fresh (m0 = -1e30) and with
-    a state, in fp32 and bf16 (bf16 8e-2), then two kernel chunks chained
-    against the plain version chained (2e-4; h against the plain version
-    chained in float64, unscaled), each as ``_mlstm_compare`` holds it.
+    B 2, H 4, L 128, dh 64, a ragged L 100, dh 128 and xlstm-1.3b's dh 1024
+    at L 128, L 256, a ragged L 200 and the longest chunk L 512 at dh 64,
+    and dh 72 (a multiple of 8, not of the 64-wide tile), fresh (m0 =
+    -1e30) and with a state, in fp32 and bf16 (bf16 8e-2), then two kernel
+    chunks chained against the plain version chained (2e-4; h against the
+    plain version chained in float64, unscaled) at B 2, H 4, L 64, dh 64
+    and at B 1, H 2, L 128, dh 128, each as ``_mlstm_compare`` holds it.
     Returns the largest abs error; raises on any disagreement."""
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
-    shapes = [(1, 2, 8, 8), (2, 4, 16, 16), (2, 2, 32, 32), (2, 4, 128, 64),
-              (1, 2, 100, 64)]
     worst = 0.0
     i = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, H, L, dh in shapes:
+        for B, H, L, dh in MLSTM_SHAPES:
             for state in (False, True):
                 i += 1
                 args = _mlstm_inputs(B, H, L, dh, dtype, 500 + i,
@@ -635,26 +744,31 @@ def check_mlstm_chunk(verbose: bool = True) -> float:
                 torch.cuda.synchronize()
                 label = (f"B={B} H={H} L={L} dh={dh} {_dt(dtype)} "
                          f"{'with a state' if state else 'fresh'}")
+                if L > MLSTM_FP32_REF_MAX_L and dtype == torch.float32:
+                    want = _mlstm_ref64(label, args, want, verbose)
                 worst = max(worst, _mlstm_compare(
                     label, got, want, MLSTM_TOL[dtype],
                     *_mlstm_witness(args), verbose=verbose))
     # two chunks chained, from a fresh state
-    B, H, L, dh = 2, 4, 64, 64
-    full = _mlstm_inputs(B, H, 2 * L, dh, torch.float32, 600, state=False)
-    outs = []
-    for fn, cast in ((mlstm_chunk, lambda t: t),
-                     (mlstm_chunk_ref, lambda t: t),
-                     (mlstm_chunk_ref, lambda t: t.double())):
-        q, k, v, i_pre, f_pre, C0, n0, m0 = (cast(t) for t in full)
-        halves = [tuple(t[:, :, j * L:(j + 1) * L].contiguous()
-                        for t in (q, k, v, i_pre, f_pre)) for j in (0, 1)]
-        h1, C1, n1, m1 = fn(*halves[0], C0, n0, m0)
-        h2, C2, n2, m2 = fn(*halves[1], C1, n1, m1)
-        outs.append((torch.cat([h1, h2], 2), C2, n2, m2))
-    torch.cuda.synchronize()
-    worst = max(worst, _mlstm_compare(
-        f"two chunks of L={L} chained (B={B} H={H} dh={dh} fp32)", outs[0],
-        outs[1], MLSTM_CHAINED_TOL, outs[2][0], verbose=verbose))
+    for seed, (B, H, L, dh) in ((600, (2, 4, 64, 64)),
+                                (601, (1, 2, 128, 128))):
+        full = _mlstm_inputs(B, H, 2 * L, dh, torch.float32, seed,
+                             state=False)
+        outs = []
+        for fn, cast in ((mlstm_chunk, lambda t: t),
+                         (mlstm_chunk_ref, lambda t: t),
+                         (mlstm_chunk_ref, lambda t: t.double())):
+            q, k, v, i_pre, f_pre, C0, n0, m0 = (cast(t) for t in full)
+            halves = [tuple(t[:, :, j * L:(j + 1) * L].contiguous()
+                            for t in (q, k, v, i_pre, f_pre)) for j in (0, 1)]
+            h1, C1, n1, m1 = fn(*halves[0], C0, n0, m0)
+            h2, C2, n2, m2 = fn(*halves[1], C1, n1, m1)
+            outs.append((torch.cat([h1, h2], 2), C2, n2, m2))
+        torch.cuda.synchronize()
+        worst = max(worst, _mlstm_compare(
+            f"two chunks of L={L} chained (B={B} H={H} dh={dh} fp32)",
+            outs[0], outs[1], MLSTM_CHAINED_TOL, outs[2][0],
+            verbose=verbose))
     return worst
 
 
@@ -817,9 +931,12 @@ def _timed_row(label, ks, ps, lib, bound, by, shape, dtype, err,
 def phase_kernel_entry() -> dict:
     """The kernel entry point of RMSNorm, flash attention and the mLSTM
     chunk, as ``benchmarks/bench_kernels.py`` drives the JAX package's:
-    each kernel at that script's shape (and one larger shape for the first
-    two) timed in turns with its plain version, beside its bound and its
-    library call.  The launch counts are set to 0 before and read after;
+    each kernel at that script's shape and one larger shape (RMSNorm
+    16384 x 2560 bf16, flash attention at qwen3-4b's heads, the mLSTM chunk
+    at xlstm-1.3b's heads: B 1, H 4, L 128, dh 1024, bf16, with a state)
+    timed in turns with its plain version, beside its bound and its library
+    call; RMSNorm and the mLSTM chunk also as device time alone
+    (``_device_ms``), RMSNorm in turns with ``F.rms_norm``'s.  The launch counts are set to 0 before and read after;
     each kernel must have launched.  Each output is held against the plain
     version's on the same inputs, at the tolerances of the kernel checks
     (``_mlstm_compare`` for the mLSTM chunk), and checked for shape, dtype
@@ -861,6 +978,13 @@ def phase_kernel_entry() -> dict:
                             lambda: rmsnorm_ref(x, scale), iters)
         lib = [_time_ms(lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6),
                         iters) for _ in range(2)]
+        # device time alone (graph replay), kernel and library call in turns
+        dev = [_device_ms(lambda: rmsnorm(x, scale)),
+               _device_ms(lambda: F.rms_norm(x, (d,), weight=weight,
+                                             eps=1e-6)),
+               _device_ms(lambda: F.rms_norm(x, (d,), weight=weight,
+                                             eps=1e-6)),
+               _device_ms(lambda: rmsnorm(x, scale))]
         y = rmsnorm(x, scale)
         err = held(label, y, rmsnorm_ref(x, scale), x)
         lib_err = float((F.rms_norm(x, (d,), weight=weight, eps=1e-6).float()
@@ -868,6 +992,11 @@ def phase_kernel_entry() -> dict:
         bound, by = bounds.rmsnorm(N, d, x.element_size())
         out[label] = _timed_row(f"{label} N={N} d={d} {_dt(dtype)}", ks, ps,
                                 lib, bound, by, (N, d), dtype, err, lib_err)
+        out[label]["device_ms"] = min(dev[0], dev[3])
+        out[label]["library_device_ms"] = min(dev[1], dev[2])
+        print(f"[timing] {label}: device time alone (graph replay) kernel "
+              f"{dev[0]:.5f}/{dev[3]:.5f} ms, F.rms_norm "
+              f"{dev[1]:.5f}/{dev[2]:.5f} ms")
         del x, scale, weight, y
     for label, (B, H, KV, S, dh), dtype, iters in (
             ("flash_attention", (1, 4, 2, 256, 64), torch.float32, 500),
@@ -891,18 +1020,26 @@ def phase_kernel_entry() -> dict:
             f"{_dt(dtype)}", ks, ps, lib, bound, by, (B, H, KV, S, dh),
             dtype, err, lib_err)
         del q, k, v, y
-    B, H, L, dh = 2, 4, 128, 64
-    args = _mlstm_inputs(B, H, L, dh, torch.float32, 900, state=False)
-    ks, ps = _time_pair(lambda: mlstm_chunk(*args),
-                        lambda: mlstm_chunk_ref(*args), 500)
-    label = f"B={B} H={H} L={L} dh={dh} fp32 fresh"
-    err = _mlstm_compare(f"{label} (kernel entry)", mlstm_chunk(*args),
-                         mlstm_chunk_ref(*args), MLSTM_TOL[torch.float32],
-                         *_mlstm_witness(args))
-    bound, by = bounds.mlstm_chunk(B, H, L, dh, 4)
-    out["mlstm_chunk"] = _timed_row(f"mlstm_chunk {label}", ks, ps, None,
-                                    bound, by, (B, H, L, dh), torch.float32,
-                                    err)
+    for key, (B, H, L, dh), dtype, state, iters in (
+            ("mlstm_chunk", (2, 4, 128, 64), torch.float32, False, 500),
+            ("mlstm_chunk xlstm-1.3b head", XLSTM_HEAD, torch.bfloat16, True,
+             200)):
+        args = _mlstm_inputs(B, H, L, dh, dtype, 900 + dh, state=state)
+        ks, ps = _time_pair(lambda: mlstm_chunk(*args),
+                            lambda: mlstm_chunk_ref(*args), iters)
+        dev = [_device_ms(lambda: mlstm_chunk(*args)) for _ in range(2)]
+        label = (f"B={B} H={H} L={L} dh={dh} {_dt(dtype)} "
+                 f"{'with a state' if state else 'fresh'}")
+        err = _mlstm_compare(f"{label} (kernel entry)", mlstm_chunk(*args),
+                             mlstm_chunk_ref(*args), MLSTM_TOL[dtype],
+                             *_mlstm_witness(args))
+        bound, by = bounds.mlstm_chunk(B, H, L, dh, args[0].element_size())
+        out[key] = _timed_row(f"{key} {label}", ks, ps, None, bound, by,
+                              (B, H, L, dh), dtype, err)
+        out[key]["device_ms"] = min(dev)
+        print(f"[timing] {key}: device time alone (graph replay) "
+              f"{dev[0]:.5f}/{dev[1]:.5f} ms")
+        del args
     launches = {fn.__name__: fn.launches for fn in fns}
     print(f"[timing] kernel entry launches {launches}")
     if not all(launches.values()):
@@ -1486,7 +1623,8 @@ def main() -> int:
                         "decode B=1 S=1024")},
     }]
     larger = {"rmsnorm": "rmsnorm qwen3-4b width",
-              "flash_attention": "flash_attention qwen3-4b heads"}
+              "flash_attention": "flash_attention qwen3-4b heads",
+              "mlstm_chunk": "mlstm_chunk xlstm-1.3b head"}
     for kname, line in (("rmsnorm", 23), ("flash_attention", 89),
                         ("mlstm_chunk", 73)):
         row = {
@@ -1502,6 +1640,14 @@ def main() -> int:
                                  "timing": entry["launches"][kname]}}
         if kname in larger:
             row["larger_shape"] = numbers(larger[kname], entry)
+        if kname == "rmsnorm":
+            row["device_ms"] = {key: [entry[key]["device_ms"],
+                                      entry[key]["library_device_ms"]]
+                                for key in ("rmsnorm",
+                                            "rmsnorm qwen3-4b width")}
+        if kname == "mlstm_chunk":
+            row["device_ms"] = {key: entry[key]["device_ms"] for key in
+                                ("mlstm_chunk", "mlstm_chunk xlstm-1.3b head")}
         if kname == "flash_attention":
             row["sass"] = sass
         kernels.append(row)

@@ -9,13 +9,17 @@ with ``nvcc``'s output; nothing falls back.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -74,3 +78,28 @@ def load(source) -> tuple:
                 os.unlink(tmp)
         log = proc.stdout + proc.stderr
     return ctypes.CDLL(str(lib_path)), log
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_device(device):
+    """A context that makes the CUDA ``device`` current for a launch:
+    ``torch.cuda.device(device)`` when another device is current, else a
+    no-op (entering ``torch.cuda.device`` costs host time on every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch.
+    (``torch.cuda.current_stream(device).cuda_stream`` builds a Stream
+    object on every call, several microseconds of host time.)"""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,18 +1,29 @@
-"""Wrapper of the mLSTM chunk CUDA kernel.
+"""Wrapper of the mLSTM chunk CUDA kernels.
 
 ``mlstm_chunk(q, k, v, i_pre, f_pre, C0, n0, m0)`` dispatches on the
 tensors' device: CPU tensors take the plain version (``ref.py``); CUDA
-tensors launch the kernel (``mlstm_chunk.cu``, built at first use) or
+tensors launch the kernels (``mlstm_chunk.cu``, built at first use) or
 raise.  Nothing falls back from one to the other.  The gates and the state
 are cast to contiguous fp32 first, as the JAX wrapper casts the state.
-``mlstm_chunk.launches`` counts kernel launches (plain-version calls do
-not count).
+``mlstm_chunk.launches`` counts wrapper calls that launched the kernels
+(plain-version calls do not count).
+
+On the card a call is two to four launches: a scores pass, grid (B·H,
+ceil(L / ``SCORE_ROWS``), ceil(L / ``TILE``)), writing W, its row sums and
+the gate factors to a scratch; then an output pass of h tiles, state tiles
+(``TILE`` × ``TILE`` each) and n1 blocks.  Above dh ``H_PART`` each h tile
+comes in parts along C0's rows, and a last launch adds them; above dh
+``SCORE_DPART`` the scores pass runs in parts of dh, and a combine launch
+adds them before the output pass.  ``plan(B, H, L, dh)`` gives the grids
+and the scratch's layout; the wrapper allocates the scratch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+import struct
+from typing import NamedTuple
 
 import torch
 
@@ -21,9 +32,117 @@ from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
 
 SOURCE = pathlib.Path(__file__).with_name("mlstm_chunk.cu")
 DTYPES = (torch.float32, torch.bfloat16)
-#: head dims and the longest chunk the kernel is built for
-KERNEL_DIMS = (8, 16, 32, 64)
-KERNEL_MAX_L = 128
+#: the head dims (multiples of 8) and the chunk lengths the kernels take
+KERNEL_MAX_DH = 1024
+KERNEL_MAX_L = 512
+#: W rows a scores block; rows and columns of an h or state tile; columns
+#: of k an n1 block sums; rows of C0 an h tile takes (above it, h tiles
+#: come in parts and a last launch adds them)
+SCORE_ROWS = 16
+TILE = 64
+N1_COLUMNS = 128
+H_PART = 256
+#: d a scores block takes: above it the scores pass runs in parts of dh
+#: and a combine launch adds them
+SCORE_DPART = 256
+#: the kernels' arguments, packed into one struct (``Launch`` in the
+#: source): 13 pointers, then BH, L, dh, LP, is_bf16 and the plan's grid
+_LAUNCH = struct.Struct("<13Q11i")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+class Plan(NamedTuple):
+    BH: int
+    L: int
+    dh: int
+    LP: int          # W's row stride: L rounded up to a multiple of 4
+    row_tiles: int   # scores grid (BH, row_tiles, t_tiles): 16 x 64 tiles
+    t_tiles: int     # h tiles (BH, t_tiles, d_tiles, h_parts); W's column
+    d_tiles: int     # tiles; state tiles (BH, d_tiles, d_tiles)
+    n1_blocks: int   # n1 blocks (BH, n1_blocks), N1_COLUMNS columns each
+    h_parts: int     # parts of C0's rows an h tile is split into
+    k_parts: int     # parts of dh a scores tile is split into
+
+    @property
+    def scratch(self):
+        """The scratch, in order: W's row sums by column tile ``part`` (BH,
+        L, t_tiles), the state's part of the normaliser ``nq0`` (BH, L)
+        and, with dh in parts, the parts' dot products ``pdot`` (BH,
+        row_tiles, t_tiles, k_parts, 16, 64) and q . n0 ``pqn`` (BH,
+        row_tiles, k_parts, 16) in fp64, padded to 16 bytes; then in fp32
+        W (BH, L, LP), ``floor`` exp(-m), ``inter`` exp(m0 - g), ``ws``
+        exp(u - g_L) (BH, L), ``decay`` (BH,) and, from a 16-byte boundary,
+        h's numerator by part ``hnum`` (h_parts, BH, L, dh) when there is
+        more than one part.  ``{name: (offset in fp32 units, shape,
+        dtype)}``."""
+        BH, L, T, K = self.BH, self.L, self.t_tiles, self.k_parts
+        rows, at = BH * L, self._fp32_at
+        out = {"part": (0, (BH, L, T), torch.float64),
+               "nq0": (2 * rows * T, (BH, L), torch.float64)}
+        if K > 1:
+            R = self.row_tiles
+            out["pdot"] = (2 * rows * (T + 1), (BH, R, T, K, SCORE_ROWS, TILE),
+                           torch.float64)
+            out["pqn"] = (2 * (rows * (T + 1) + BH * R * T * K * SCORE_ROWS
+                               * TILE), (BH, R, K, SCORE_ROWS), torch.float64)
+        out["W"] = (at, (BH, L, self.LP), torch.float32)
+        at += rows * self.LP
+        for name in ("floor", "inter", "ws"):
+            out[name] = (at, (BH, L), torch.float32)
+            at += rows
+        out["decay"] = (at, (BH,), torch.float32)
+        if self.h_parts > 1:
+            out["hnum"] = (self._hnum_at, (self.h_parts, BH, L, self.dh),
+                           torch.float32)
+        return out
+
+    @property
+    def _fp32_at(self):
+        """Where the fp32 part starts: after the fp64 part, rounded up to
+        16 bytes."""
+        doubles = self.BH * self.L * (self.t_tiles + 1)
+        if self.k_parts > 1:
+            doubles += self.BH * self.row_tiles * self.k_parts * SCORE_ROWS \
+                * (self.t_tiles * TILE + 1)
+        return -(-doubles // 2) * 4
+
+    @property
+    def _hnum_at(self):
+        return self._fp32_at + -(-(self.BH * self.L * (self.LP + 3)
+                                   + self.BH) // 4) * 4
+
+    @property
+    def scratch_floats(self):
+        """Size of the scratch in fp32 units."""
+        if self.h_parts > 1:
+            return self._hnum_at + self.h_parts * self.BH * self.L * self.dh
+        return self._fp32_at + self.BH * self.L * (self.LP + 3) + self.BH
+
+    @property
+    def output_blocks(self):
+        """Blocks of the output pass: h tiles (each in h_parts parts), then
+        state tiles, then n1 blocks."""
+        return self.BH * (self.t_tiles * self.d_tiles * self.h_parts
+                          + self.d_tiles ** 2 + self.n1_blocks)
+
+    @property
+    def finish_blocks(self):
+        """Blocks of the third launch (4 columns of h a thread, 256 threads
+        a block), 0 when h comes in one part."""
+        if self.h_parts == 1:
+            return 0
+        return _cdiv(self.BH * self.L * self.dh // 4, 256)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B, H, L, dh):
+    """Grids and scratch of the two launches for q (B, H, L, dh)."""
+    return Plan(B * H, L, dh, _cdiv(L, 4) * 4, _cdiv(L, SCORE_ROWS),
+                _cdiv(L, TILE), _cdiv(dh, TILE), _cdiv(dh, N1_COLUMNS),
+                _cdiv(dh, H_PART), _cdiv(dh, SCORE_DPART))
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,7 +151,7 @@ def load_library():
     signatures.  Returns ``(ctypes.CDLL, nvcc_output)``."""
     lib, log = build.load(SOURCE)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.mlstm_chunk_launch.argtypes = [vp] * 12 + [i] * 4 + [vp]
+    lib.mlstm_chunk_launch.argtypes = [ctypes.c_char_p, vp]
     lib.mlstm_chunk_launch.restype = i
     lib.mlstm_chunk_error_string.argtypes = [i]
     lib.mlstm_chunk_error_string.restype = ctypes.c_char_p
@@ -43,46 +162,54 @@ def check(q, k, v, i_pre, f_pre, C0, n0, m0, *, kernel=False):
     """Raise on anything the wrapper does not take: q, k, v (B, H, L, dh)
     of one dtype (fp32 or bf16), contiguous; floating gates (B, H, L) and
     state C0 (B, H, dh, dh), n0 (B, H, dh), m0 (B, H); all on one device.
-    ``kernel``: also what only the CUDA kernel needs (dh in
-    ``KERNEL_DIMS``, L <= ``KERNEL_MAX_L``, 16-byte aligned q, k, v)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in DTYPES:
-            raise TypeError(f"mlstm_chunk: {name} must be one of {DTYPES}, "
-                            f"got {t.dtype}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"mlstm_chunk: {name} is {t.dtype}, q is "
-                            f"{q.dtype}; all three must share a dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"mlstm_chunk: {name} must be contiguous")
+    ``kernel``: also what only the CUDA kernels need (dh a multiple of 8 up
+    to ``KERNEL_MAX_DH``, L <= ``KERNEL_MAX_L``, q, k, v and C0 on a
+    16-byte boundary).  Written to cost little host time on arguments it
+    takes: every launch runs it."""
+    dt = q.dtype
+    if dt not in DTYPES or k.dtype != dt or v.dtype != dt \
+            or not (q.is_contiguous() and k.is_contiguous()
+                    and v.is_contiguous()):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.dtype not in DTYPES:
+                raise TypeError(f"mlstm_chunk: {name} must be one of "
+                                f"{DTYPES}, got {t.dtype}")
+            if t.dtype != dt:
+                raise TypeError(f"mlstm_chunk: {name} is {t.dtype}, q is "
+                                f"{dt}; all three must share a dtype")
+            if not t.is_contiguous():
+                raise ValueError(f"mlstm_chunk: {name} must be contiguous")
     named = (("q", q), ("k", k), ("v", v), ("i_pre", i_pre),
              ("f_pre", f_pre), ("C0", C0), ("n0", n0), ("m0", m0))
     for name, t in named[3:]:
         if not t.is_floating_point():
             raise TypeError(f"mlstm_chunk: {name} must be floating, got "
                             f"{t.dtype}")
+    dev = q.device
     for name, t in named[1:]:
-        if t.device != q.device:
+        if t.device != dev:
             raise ValueError(f"mlstm_chunk: {name} is on {t.device}, q is "
-                             f"on {q.device}")
-    ok = q.ndim == 4 and min(q.shape) >= 1
+                             f"on {dev}")
+    shape = q.shape
+    ok = len(shape) == 4 and min(shape) >= 1
     if ok:
-        B, H, L, dh = q.shape
-        want = {"k": (B, H, L, dh), "v": (B, H, L, dh), "i_pre": (B, H, L),
-                "f_pre": (B, H, L), "C0": (B, H, dh, dh), "n0": (B, H, dh),
-                "m0": (B, H)}
-        ok = all(tuple(t.shape) == want[name] for name, t in named[1:])
+        B, H, L, dh = shape
+        ok = (k.shape == shape and v.shape == shape
+              and i_pre.shape == f_pre.shape == (B, H, L)
+              and C0.shape == (B, H, dh, dh) and n0.shape == (B, H, dh)
+              and m0.shape == (B, H))
     if not ok:
         raise ValueError(
             "mlstm_chunk: want q, k, v (B, H, L, dh), i_pre and f_pre "
             "(B, H, L), C0 (B, H, dh, dh), n0 (B, H, dh), m0 (B, H); got "
             + ", ".join(f"{name} {tuple(t.shape)}" for name, t in named))
     if kernel:
-        if dh not in KERNEL_DIMS or L > KERNEL_MAX_L:
-            raise ValueError(f"mlstm_chunk: the kernel takes dh in "
-                             f"{KERNEL_DIMS} and L <= {KERNEL_MAX_L}; got "
-                             f"dh {dh}, L {L}")
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("mlstm_chunk: q, k and v must start on a "
+        if dh % 8 or dh > KERNEL_MAX_DH or L > KERNEL_MAX_L:
+            raise ValueError(f"mlstm_chunk: the kernel takes dh a multiple "
+                             f"of 8 up to {KERNEL_MAX_DH} and L <= "
+                             f"{KERNEL_MAX_L}; got dh {dh}, L {L}")
+        if (q.data_ptr() | k.data_ptr() | v.data_ptr() | C0.data_ptr()) % 16:
+            raise ValueError("mlstm_chunk: q, k, v and C0 must start on a "
                              "16-byte boundary")
 
 
@@ -93,24 +220,29 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, C0, n0, m0):
     C0: (B, H, dh, dh); n0: (B, H, dh); m0: (B, H) (-1e30 for a fresh
     state); all on one device.  Returns ``(h, C1, n1, m1)``: h (B, H, L,
     dh) in q's dtype, the state at the chunk's end in fp32."""
-    check(q, k, v, i_pre, f_pre, C0, n0, m0)
-    i_pre, f_pre, C0, n0, m0 = (t.float().contiguous()
-                                for t in (i_pre, f_pre, C0, n0, m0))
-    if q.device.type == "cpu":
+    dev = q.device
+    check(q, k, v, i_pre, f_pre, C0, n0, m0, kernel=dev.type == "cuda")
+    i_pre, f_pre, C0, n0, m0 = [
+        t if t.dtype is torch.float32 and t.is_contiguous()
+        else t.float().contiguous() for t in (i_pre, f_pre, C0, n0, m0)]
+    if dev.type == "cpu":
         return mlstm_chunk_ref(q, k, v, i_pre, f_pre, C0, n0, m0)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm_chunk: no kernel for device {q.device}")
-    check(q, k, v, i_pre, f_pre, C0, n0, m0, kernel=True)
+    if dev.type != "cuda":
+        raise ValueError(f"mlstm_chunk: no kernel for device {dev}")
     lib, _ = load_library()
-    B, H, L, dh = q.shape
-    with torch.cuda.device(q.device):
+    p = plan(*q.shape)
+    with build.on_device(dev):
         h = torch.empty_like(q)
         C1, n1, m1 = (torch.empty_like(t) for t in (C0, n0, m0))
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mlstm_chunk_launch(
-            *(t.data_ptr() for t in (q, k, v, i_pre, f_pre, C0, n0, m0, h,
-                                     C1, n1, m1)),
-            B * H, L, dh, int(q.dtype == torch.bfloat16), stream)
+        scratch = torch.empty(p.scratch_floats, dtype=torch.float32,
+                              device=dev)
+        rc = lib.mlstm_chunk_launch(_LAUNCH.pack(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
+            f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
+            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
+            scratch.data_ptr(), p.BH, p.L, p.dh, p.LP,
+            q.dtype == torch.bfloat16, p.row_tiles, p.t_tiles, p.d_tiles,
+            p.n1_blocks, p.h_parts, p.k_parts), build.current_stream(dev))
     if rc != 0:
         raise RuntimeError("mlstm_chunk: kernel launch failed: "
                            f"{lib.mlstm_chunk_error_string(rc).decode()} "

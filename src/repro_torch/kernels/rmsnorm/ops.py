@@ -5,12 +5,28 @@ tensors take the plain version (``ref.py``); CUDA tensors launch the kernel
 (``rmsnorm.cu``, built at first use) or raise.  Nothing falls back from
 one to the other.  ``rmsnorm.launches`` counts kernel launches
 (plain-version calls do not count).
+
+``plan(N, d, itemsize, sm_count)`` chooses the kernel's path, the 16-byte
+chunks a thread holds (K) and the grid, from the shape and the card's SM
+count alone:
+
+- ``"warp"``: one warp a row, 4 rows a block, K = ceil(d / vector / 32)
+  chunks a lane, up to ``WARP_K_MAX`` (rows up to ``WARP_MAX_D``);
+- ``"block"``: wider rows, one block of 256 threads a row, the least K of
+  ``BLOCK_KS`` that holds the row (rows up to ``BLOCK_MAX_D``);
+- ``"loop"``: widths that are not a multiple of the vector width (4 fp32,
+  8 bf16 values: 16 bytes) and rows wider than the block path holds; the
+  row is read twice.
+
+The grid is at most the blocks that fit the card at once
+(``blocks_per_sm`` a SM), each walking rows with a stride.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +35,69 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 SOURCE = pathlib.Path(__file__).with_name("rmsnorm.cu")
 DTYPES = (torch.float32, torch.bfloat16)
+PATHS = ("warp", "block", "loop")
+#: threads a block on each path
+THREADS = {"warp": 128, "block": 256, "loop": 256}
+#: the largest K of the warp path and the K the block path is built for,
+#: by x's itemsize: what fits in registers without spills (x's chunks and
+#: 1 + scale in fp32, 8 or 12 registers a chunk; ptxas spills bf16 K 12
+#: on the warp path, where it keeps a thread under 168 registers)
+WARP_K_MAX = {4: 16, 2: 11}
+BLOCK_KS = {4: (4, 8, 16), 2: (2, 4, 8, 12)}
+
+
+def vector(itemsize):
+    """Values in a 16-byte chunk."""
+    return 16 // itemsize
+
+
+def warp_max_d(itemsize):
+    """The widest row of the warp path."""
+    return 32 * WARP_K_MAX[itemsize] * vector(itemsize)
+
+
+def block_max_d(itemsize):
+    """The widest row of the block path."""
+    return THREADS["block"] * BLOCK_KS[itemsize][-1] * vector(itemsize)
+
+
+def blocks_per_sm(path, K, itemsize):
+    """Blocks of (path, K) that fit one SM at once, from the registers a
+    thread needs (about 32 besides the row's K chunks: 4 registers a chunk
+    of x, one a value of 1 + scale), at most 16.  ``chip_smoke.py`` holds
+    it to the occupancy calculator on the card."""
+    regs = 32 + K * (4 + vector(itemsize))
+    regs = -(-regs // 8) * 8
+    return max(1, min(16, 65536 // (THREADS[path] * regs)))
+
+
+class Plan(NamedTuple):
+    path: str
+    K: int          # 16-byte chunks a thread holds (0 on the loop path)
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(N, d, itemsize, sm_count):
+    """The kernel's path, K and grid for x (N, d) of ``itemsize`` bytes on
+    a card of ``sm_count`` SMs."""
+    vec = vector(itemsize)
+    chunks, ragged = divmod(d, vec)
+    if not ragged and chunks <= 32 * WARP_K_MAX[itemsize]:
+        K = -(-chunks // 32)
+        rows = THREADS["warp"] // 32
+        return Plan("warp", K, THREADS["warp"],
+                    min(-(-N // rows),
+                        sm_count * blocks_per_sm("warp", K, itemsize)))
+    if not ragged and d <= block_max_d(itemsize):
+        K = next(k for k in BLOCK_KS[itemsize]
+                 if k * THREADS["block"] >= chunks)
+        return Plan("block", K, THREADS["block"],
+                    min(N, sm_count * blocks_per_sm("block", K, itemsize)))
+    rows = THREADS["loop"] // 32
+    return Plan("loop", 0, THREADS["loop"], min(-(-N // rows),
+                                                sm_count * 8))
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,16 +106,20 @@ def load_library():
     signatures.  Returns ``(ctypes.CDLL, nvcc_output)``."""
     lib, log = build.load(SOURCE)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rmsnorm_launch.argtypes = [vp] * 3 + [i, i, f, i, i, vp]
+    lib.rmsnorm_launch.argtypes = [vp] * 3 + [i, i, f] + [i] * 5 + [vp]
     lib.rmsnorm_launch.restype = i
+    lib.rmsnorm_blocks_per_sm.argtypes = [i] * 4
+    lib.rmsnorm_blocks_per_sm.restype = i
     lib.rmsnorm_error_string.argtypes = [i]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
     return lib, log
 
 
-def check(x, scale):
-    """Raise on anything the kernel does not take: x (N, d) fp32 or bf16,
-    scale (d,) fp32 or x's dtype, both contiguous on one device."""
+def check(x, scale, *, kernel=False):
+    """Raise on anything the wrapper does not take: x (N, d) fp32 or bf16,
+    scale (d,) fp32 or x's dtype, both contiguous on one device.
+    ``kernel``: also what only the CUDA kernel needs (x and scale on a
+    16-byte boundary)."""
     if x.dtype not in DTYPES:
         raise TypeError(f"rmsnorm: x must be one of {DTYPES}, got {x.dtype}")
     if scale.dtype not in (torch.float32, x.dtype):
@@ -52,6 +135,9 @@ def check(x, scale):
             or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"rmsnorm: want x (N, d) and scale (d,) with N, d "
                          f">= 1; got {tuple(x.shape)}, {tuple(scale.shape)}")
+    if kernel and (x.data_ptr() % 16 or scale.data_ptr() % 16):
+        raise ValueError("rmsnorm: x and scale must start on a 16-byte "
+                         "boundary")
 
 
 def rmsnorm(x, scale, *, eps=1e-6):
@@ -59,23 +145,22 @@ def rmsnorm(x, scale, *, eps=1e-6):
 
     x: (N, d), float32 or bfloat16; scale: (d,), float32 or x's dtype; both
     contiguous on one device.  Returns (N, d) in x's dtype."""
-    check(x, scale)
-    if x.device.type == "cpu":
+    dev = x.device
+    check(x, scale, kernel=dev.type == "cuda")
+    if dev.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    if x.data_ptr() % 16 or scale.data_ptr() % 16:
-        raise ValueError("rmsnorm: x and scale must start on a 16-byte "
-                         "boundary")
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm: no kernel for device {dev}")
     lib, _ = load_library()
     N, d = x.shape
-    with torch.cuda.device(x.device):
+    bf16 = x.dtype == torch.bfloat16
+    p = plan(N, d, x.element_size(), build.sm_count(dev))
+    with build.on_device(dev):
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.rmsnorm_launch(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), N, d, float(eps),
-            int(x.dtype == torch.bfloat16),
-            int(scale.dtype == torch.bfloat16), stream)
+            bf16, scale.dtype == torch.bfloat16, PATHS.index(p.path), p.K,
+            p.grid, build.current_stream(dev))
     if rc != 0:
         raise RuntimeError("rmsnorm: kernel launch failed: "
                            f"{lib.rmsnorm_error_string(rc).decode()} "

@@ -53,9 +53,13 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda_device):
 @pytest.mark.gpu
 def test_rmsnorm_kernel_matches_plain_on_card(cuda_device):
     """chip_smoke.py's RMSNorm check under pytest: the JAX kernel tests'
-    sweep, the kernel benchmark's 1024 x 512, qwen3-4b's width and widths
-    that take the scalar path, fp32 and bf16 (atol = rtol = fp32 2e-5,
-    bf16 2e-2)."""
+    sweep, the kernel benchmark's 1024 x 512, qwen3-4b's width, N 1 and 3
+    at d 2560, the warp path's widest row (fp32 2048, bf16 2816) and one
+    16-byte chunk above it, d 4096 and 8192 on the block path, a ragged
+    width and the block path's widest row plus a chunk on the loop path,
+    fp32 and bf16, each width also against the path ``ops.plan`` gives it;
+    and the planner's blocks an SM against the occupancy calculator (atol
+    = rtol = fp32 2e-5, bf16 2e-2)."""
     assert _chip_smoke().check_rmsnorm(verbose=False) <= 2e-2
 
 
@@ -73,10 +77,12 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device):
 @pytest.mark.gpu
 def test_mlstm_chunk_kernel_matches_plain_on_card(cuda_device):
     """chip_smoke.py's mLSTM-chunk check under pytest: the JAX kernel
-    tests' sweep and the kernel benchmark's shape, fresh and with a state,
-    fp32 and bf16, and two chunks chained (C1, n1, m1 and bf16 h against
-    the plain version at fp32 2e-5 / bf16 8e-2 / chained 2e-4; fp32 h
-    against the plain version in float64 at the tolerance times its row's
-    condition number, capped at 16); the check raises on any
-    disagreement."""
+    tests' sweep, the kernel benchmark's shape, dh 128 and xlstm-1.3b's dh
+    1024 at L 128, L 256, a ragged L 200 and L 512 at dh 64, and dh 72,
+    fresh and with a state, fp32 and bf16, and two chunks chained at dh 64
+    and dh 128 (C1, n1, m1 and bf16 h against the plain version at fp32
+    2e-5 / bf16 8e-2 / chained 2e-4, against the plain version in float64
+    for the fp32 L 512 chunk; fp32 h against the plain version in float64
+    at the tolerance times its row's condition number, capped at 16); the
+    check raises on any disagreement."""
     assert math.isfinite(_chip_smoke().check_mlstm_chunk(verbose=False))

@@ -10,8 +10,11 @@ and m0 = 0), from a fresh state (m0 = -1e30), and two chunks chained
 against one reference chunk of twice the length.  Tolerances are those of
 ``tests/test_kernels.py``: fp32 2e-5, bf16 8e-2 (the JAX reference keeps
 its intra-chunk products in the input dtype), two chunks chained 2e-4
-(atol = rtol).  The CUDA kernel itself is held to the plain version on the
-card by ``tests/test_torch_gpu.py``.
+(atol = rtol); at L 256 and dh 1024 an fp32 h is held against float64
+scaled by its row's condition number, as the card check holds it.  The
+kernels' grids and scratch (``ops.plan``) are checked here; the CUDA
+kernels themselves are held to the plain version on the card by
+``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -183,12 +186,122 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         mlstm_chunk(*args)
 
 
-@pytest.mark.parametrize("L,dh", [(8, 128), (8, 12), (129, 8)])
+@pytest.mark.parametrize("L,dh", [(8, 12), (8, 1032), (513, 8)])
 def test_kernel_check_rejects_what_only_the_kernel_refuses(L, dh):
-    """dh outside (8, 16, 32, 64) or L above 128, checked without a card
-    by the wrapper's checking function; the plain version takes them."""
+    """dh not a multiple of 8 or above 1024, or L above 512, checked
+    without a card by the wrapper's checking function; the plain version
+    takes them."""
     args = [torch.from_numpy(a) for a in _inputs(1, 1, L, dh, seed=0)]
     ops.check(*args)
     with pytest.raises(ValueError, match="the kernel takes"):
         ops.check(*args, kernel=True)
     assert mlstm_chunk(*args)[0].shape == (1, 1, L, dh)
+
+
+@pytest.mark.parametrize("L,dh", [(8, 128), (8, 1024), (256, 8),
+                                  (512, 72)])
+def test_kernel_check_takes_wide_heads_and_long_chunks(L, dh):
+    """dh 128 and xlstm-1.3b's 1024, L 256 and 512, and dh 72 (a multiple
+    of 8, not of the 64-wide tile) pass the kernel's own check."""
+    args = [torch.from_numpy(a).clone() for a in _inputs(1, 1, L, dh, seed=0)]
+    ops.check(*args, kernel=True)
+    assert (ops.KERNEL_MAX_DH, ops.KERNEL_MAX_L) == (1024, 512)
+
+
+@pytest.mark.parametrize("B,H,L,dh", [(1, 2, 256, 128), (1, 1, 16, 1024)])
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_at_wide_heads(B, H, L, dh, fresh, dtype):
+    """The plain version against the JAX kernel (interpret mode) at L 256
+    with dh 128 and at xlstm-1.3b's dh 1024: C1, n1, m1 and a bf16 h
+    elementwise at fp32 2e-5 / bf16 8e-2.  An fp32 h is held as
+    ``chip_smoke._mlstm_compare`` holds the card's: both fp32 evaluations
+    (the plain version's and the JAX kernel's) against the plain version in
+    float64, at 2e-5 (1 + |h64|) times each row's condition number capped
+    at 16 (the normaliser cancels: rows reach a condition of 10^3 here, and
+    the two fp32 h differ by 8e-5 relative at L 256)."""
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_condition
+    arrays = _inputs(B, H, L, dh, seed=13, fresh=fresh)
+    port = _port(arrays, dtype)
+    ref = jax_kernel(*_jax(arrays, dtype))
+    tol = TOL[dtype]
+    _assert_close(port[1:], ref[1:], tol)
+    if dtype == "bfloat16":
+        _assert_close(port[:1], ref[:1], tol)
+        return
+    t = [torch.from_numpy(a) for a in arrays]
+    h64 = ops.mlstm_chunk_ref(*(x.double() for x in t))[0]
+    kappa = mlstm_chunk_condition(t[0], t[1], t[3], t[4], t[6], t[7])
+    allowed = tol * (1 + h64.abs()) * kappa.clamp(max=16.0)[..., None]
+    for h in (port[0].double(),
+              torch.from_numpy(np.asarray(ref[0], np.float64))):
+        assert bool(((h - h64).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize("B,H,L,dh", [(1, 1, 1, 8), (2, 4, 128, 64),
+                                      (1, 2, 100, 64), (1, 4, 128, 1024),
+                                      (1, 2, 200, 72), (3, 1, 512, 8),
+                                      (1, 1, 17, 264)])
+def test_plan_tiles_cover_every_row_and_column_once(B, H, L, dh):
+    """The kernels' grids from ``ops.plan``: the scores blocks' 16-row
+    tiles, the h tiles' rows and columns, the state tiles' (d, j) and the
+    n1 blocks' columns each cover every index of their range exactly once,
+    and no tile starts past the end."""
+    p = ops.plan(B, H, L, dh)
+    assert p.BH == B * H and (p.L, p.dh) == (L, dh)
+
+    def cover(tiles, size, n):
+        starts = [i * size for i in range(tiles)]
+        assert all(s < n for s in starts)
+        hits = [i for s in starts for i in range(s, min(s + size, n))]
+        assert sorted(hits) == list(range(n))
+
+    cover(p.row_tiles, ops.SCORE_ROWS, L)
+    cover(p.t_tiles, ops.TILE, L)
+    cover(p.d_tiles, ops.TILE, dh)
+    cover(p.n1_blocks, ops.N1_COLUMNS, dh)
+    cover(p.h_parts, ops.H_PART, dh)
+    cover(p.k_parts, ops.SCORE_DPART, dh)
+    assert p.output_blocks == p.BH * (p.t_tiles * p.d_tiles * p.h_parts
+                                      + p.d_tiles ** 2 + p.n1_blocks)
+    # the third launch: only when h comes in parts, 4 columns a thread
+    assert (p.finish_blocks == 0) == (p.h_parts == 1)
+    if p.finish_blocks:
+        assert (p.finish_blocks - 1) * 1024 < p.BH * L * dh \
+            <= p.finish_blocks * 1024
+
+
+@pytest.mark.parametrize("B,H,L,dh", [(1, 1, 1, 8), (2, 4, 128, 64),
+                                      (1, 2, 201, 72), (1, 4, 128, 1024),
+                                      (1, 1, 3, 8), (3, 1, 5, 264)])
+def test_plan_scratch_matches_the_shapes(B, H, L, dh):
+    """The scratch holds W's row sums by column tile (BH, L, t_tiles), the
+    state's part of the normaliser (BH, L) and, above dh 256, the scores
+    parts' dot products and q . n0 in fp64, then, from a 16-byte
+    boundary, W (BH, L, LP) with LP = L rounded up to 4 (16-byte rows),
+    floor, inter, ws (BH, L) and decay (BH,), back to back, and above dh
+    256, from a 16-byte boundary, h's numerator by part."""
+    p = ops.plan(B, H, L, dh)
+    BH = B * H
+    assert p.LP % 4 == 0 and L <= p.LP < L + 4
+    want = [("part", (BH, L, p.t_tiles), torch.float64),
+            ("nq0", (BH, L), torch.float64)]
+    if dh > ops.SCORE_DPART:
+        want += [("pdot", (BH, p.row_tiles, p.t_tiles, p.k_parts, 16, 64),
+                  torch.float64),
+                 ("pqn", (BH, p.row_tiles, p.k_parts, 16), torch.float64)]
+    want += [("W", (BH, L, p.LP), None), ("floor", (BH, L), None),
+             ("inter", (BH, L), None), ("ws", (BH, L), None),
+             ("decay", (BH,), None)]
+    if dh > ops.H_PART:
+        want.append(("hnum", (p.h_parts, BH, L, dh), None))
+    assert list(p.scratch) == [w[0] for w in want]
+    at = 0
+    for (name, shape, dt), (got_name, (off, got_shape, got_dt)) in zip(
+            want, p.scratch.items()):
+        if name in ("W", "hnum"):
+            at = -(-at // 4) * 4            # 16 bytes
+        assert (got_name, off, got_shape) == (name, at, shape)
+        assert got_dt == (dt or torch.float32)
+        at += int(np.prod(shape)) * (2 if dt == torch.float64 else 1)
+    assert p.scratch_floats == at

@@ -6,9 +6,10 @@ the JAX Pallas kernel (in interpret mode, as the JAX package's own tests
 run it) and to the JAX ``rmsnorm_ref`` over ``tests/test_kernels.py``'s
 sweep (N, d of (8, 32), (37, 64), (256, 128), (5, 256); fp32 and bf16, the
 scale in x's dtype), plus a bf16 x with an fp32 scale.  Tolerances are those
-of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2 (atol = rtol).  The CUDA
-kernel itself is held to the plain version on the card by
-``tests/test_torch_gpu.py``.
+of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2 (atol = rtol).  The
+kernel's planner (``ops.plan``: path, K and grid from the shape and the SM
+count) is checked here; the CUDA kernel itself is held to the plain
+version on the card by ``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -90,3 +91,75 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x, s, exc = x.to("meta"), s.to("meta"), ValueError
     with pytest.raises(exc):
         rmsnorm(x, s)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_plan_switches_path_at_the_stated_widths(itemsize):
+    """The warp path up to ``warp_max_d`` (K = WARP_K_MAX), the block path
+    one 16-byte chunk above it and up to ``block_max_d`` (d 4096 and 8192
+    on it), the loop path past that and at widths that are not a multiple
+    of the vector width."""
+    vec = ops.vector(itemsize)
+    top, wide = ops.warp_max_d(itemsize), ops.block_max_d(itemsize)
+    assert top == 32 * ops.WARP_K_MAX[itemsize] * vec
+    got = {d: ops.plan(64, d, itemsize, 132) for d in
+           (vec, top, top + vec, 4096, 8192, wide, wide + vec, top + 1, 99)}
+    assert [got[d].path for d in got] == [
+        "warp", "warp", "block", "block", "block", "block", "loop", "loop",
+        "loop"]
+    assert got[top].K == ops.WARP_K_MAX[itemsize]
+    assert got[wide].K == ops.BLOCK_KS[itemsize][-1]
+    assert ops.plan(64, 2560, 2, 132)[:2] == ("warp", 10)   # qwen3-4b bf16
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d", [8, 512, 520, 2048, 2560, 2816, 2824, 4096,
+                               8192, 12288, 16384, 99, 2561])
+def test_plan_holds_each_row_in_its_chunks(itemsize, d):
+    """The chunks a row's team holds (K a thread on the warp path's 32
+    lanes or the block path's 256 threads) cover the row, and on the warp
+    path K is the least that does."""
+    p = ops.plan(5, d, itemsize, 132)
+    chunks, ragged = divmod(d, ops.vector(itemsize))
+    if p.path == "loop":
+        assert ragged or d > ops.block_max_d(itemsize)
+        return
+    team = 32 if p.path == "warp" else p.threads
+    assert not ragged and p.K * team >= chunks
+    if p.path == "warp":
+        assert (p.K - 1) * team < chunks
+    else:
+        assert p.K in ops.BLOCK_KS[itemsize]
+
+
+@pytest.mark.parametrize("N", [1, 3, 4, 5, 37, 1024, 16384, 100003])
+@pytest.mark.parametrize("d,itemsize", [(512, 4), (2560, 2), (4096, 2),
+                                        (100, 2)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_plan_covers_every_row_once(N, d, itemsize, sms):
+    """The grid is at most the blocks that fit the card at once and at
+    most what N needs, and the teams' row walks cover every row exactly
+    once."""
+    p = ops.plan(N, d, itemsize, sms)
+    assert p.threads == ops.THREADS[p.path]
+    cap = sms * (8 if p.path == "loop"
+                 else ops.blocks_per_sm(p.path, p.K, itemsize))
+    rows = 1 if p.path == "block" else p.threads // 32
+    assert 1 <= p.grid <= min(cap, -(-N // rows))
+    # the kernel's row walk: team i (a warp, or the block on the block
+    # path) takes rows i, i + teams, i + 2 teams, ...
+    teams = p.grid * (1 if p.path == "block" else p.threads // 32)
+    walks = [range(team, N, teams) for team in range(teams)]
+    assert sorted(r for walk in walks for r in walk) == list(range(N))
+
+
+def test_kernel_check_needs_16_byte_alignment():
+    """What only the kernel needs, checked without a card: x starting 4
+    bytes past a 16-byte boundary is refused by ``check(kernel=True)`` and
+    taken by the plain version."""
+    x = torch.zeros(8 * 32 + 1)[1:].view(8, 32)
+    s = torch.zeros(32)
+    ops.check(x, s)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.check(x, s, kernel=True)
+    assert rmsnorm(x, s).shape == (8, 32)
