@@ -4,7 +4,9 @@ Each kernel is a plain C interface compiled by ``nvcc`` into a shared
 library and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The library goes to ``build/kernels/`` at the repository root,
 named by a hash of the source and the compiler flags, so an edited source
-builds anew and an unchanged one is loaded as it is.  A failed build raises
+builds anew and an unchanged one is loaded as it is.  ``nvcc``'s output
+(ptxas's register and spill report) is kept beside the library, so a
+cached library comes with the report of its build.  A failed build raises
 with ``nvcc``'s output; nothing falls back.
 """
 from __future__ import annotations
@@ -50,20 +52,24 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
 
 
 def load(source) -> tuple:
-    """Build ``source`` (if its library is not there yet) and load it.
+    """Build ``source`` (if its library and build report are not there
+    yet) and load it.
 
     Returns ``(ctypes.CDLL, nvcc_output)``; ``nvcc_output`` holds ptxas's
-    register and shared-memory report of a build made in this call ("" when
-    the library was already built).  Callers cache the result."""
+    register, spill and shared-memory report of the library's build, made
+    in this call or read from beside the library.  Callers cache the
+    result."""
     source = pathlib.Path(source)
     lib_path = library_path(source)
-    log = ""
-    if not lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+    if not (lib_path.exists() and log_path.exists()):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a unique name, then rename: concurrent builds of
-        # the same source never see a half-written library
+        # build under unique names, then rename: concurrent builds of the
+        # same source never see a half-written library or report, and the
+        # report is in place before the library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        tmp_log = tmp + ".log"
         try:
             proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                                    str(source)],
@@ -72,12 +78,14 @@ def load(source) -> tuple:
                 raise RuntimeError(f"nvcc failed to build {source.name} "
                                    f"(exit {proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
+            pathlib.Path(tmp_log).write_text(proc.stdout + proc.stderr)
+            os.replace(tmp_log, log_path)
             os.replace(tmp, lib_path)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        log = proc.stdout + proc.stderr
-    return ctypes.CDLL(str(lib_path)), log
+            for leftover in (tmp, tmp_log):
+                if os.path.exists(leftover):
+                    os.unlink(leftover)
+    return ctypes.CDLL(str(lib_path)), log_path.read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -75,6 +75,23 @@
 #include <cstdint>
 #include <type_traits>
 
+// The scratch's regions, in this order (ops.REGIONS): fp64 first (8-byte
+// aligned), then fp32.  ops.plan lays them out, the one place the layout
+// is worked out; the wrapper passes each region's address (nullptr for
+// one the plan has not).
+struct Scratch {
+  double* part;     // (BH, L, t_tiles): W's row sums over a column tile
+  double* nq0;      // (BH, L): exp(m0 - g_t) q_t . n0
+  double* pdot;     // (BH, row_tiles, t_tiles, k_parts, 16, 64): dh parts'
+  double* pqn;      // (BH, row_tiles, k_parts, 16): their q . n0
+  float* W;         // (BH, L, LP)
+  float* floor;     // (BH, L): exp(-m_t)
+  float* inter;     // (BH, L): exp(m0 - g_t)
+  float* ws;        // (BH, L): exp(u_s - g_L)
+  float* decay;     // (BH,): exp(m0 - g_L)
+  float* hnum;      // (h_parts, BH, L, dh): h's numerator by part of C0
+};
+
 // Everything a launch needs, packed by the wrapper in this order
 // (ops._LAUNCH); at file scope, so the C entry point keeps its external
 // name.
@@ -91,9 +108,11 @@ struct Launch {
   float* C1;
   float* n1;
   float* m1;
-  float* scratch;
+  Scratch sc;
+  // ops.plan's grid: the output pass's blocks and the third launch's
+  // (0 when h comes in one part) included
   int BH, L, dh, LP, is_bf16, row_tiles, t_tiles, d_tiles, n1_blocks,
-      h_parts, k_parts;
+      h_parts, k_parts, out_blocks, finish_blocks;
 };
 
 namespace {
@@ -159,20 +178,6 @@ __device__ __forceinline__ void pipeline(int nk, Fetch fetch, Put put,
     }
   }
 }
-
-// The scratch of ops.plan: fp64 first (8-byte aligned), then fp32.
-struct Scratch {
-  double* part;     // (BH, L, t_tiles): W's row sums over a column tile
-  double* nq0;      // (BH, L): exp(m0 - g_t) q_t . n0
-  double* pdot;     // (BH, row_tiles, t_tiles, k_parts, 16, 64): dh parts'
-  double* pqn;      // (BH, row_tiles, k_parts, 16): their q . n0
-  float* W;         // (BH, L, LP)
-  float* floor;     // (BH, L): exp(-m_t)
-  float* inter;     // (BH, L): exp(m0 - g_t)
-  float* ws;        // (BH, L): exp(u_s - g_L)
-  float* decay;     // (BH,): exp(m0 - g_L)
-  float* hnum;      // (h_parts, BH, L, dh): h's numerator by part of C0
-};
 
 // 4 values from 16-byte aligned p
 __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
@@ -928,55 +933,29 @@ mlstm_finish(T* __restrict__ h, OutArgs o) {
 
 template <typename T>
 cudaError_t launch(const Launch& a, cudaStream_t stream) {
-  OutArgs o{a.C0, a.n0, a.C1, a.n1, Scratch{}, a.BH, a.L, a.LP, a.dh,
-            a.t_tiles, a.d_tiles, a.n1_blocks, a.h_parts};
-  // scratch layout (ops.plan): part, nq0 and with dh in parts pdot, pqn
-  // (fp64); W, floor, inter, ws, decay, hnum (fp32); W and hnum from a
-  // 16-byte boundary
-  const size_t rows = static_cast<size_t>(a.BH) * a.L;
-  Scratch& sc = o.sc;
-  const size_t tiles = static_cast<size_t>(a.BH) * a.row_tiles * a.t_tiles;
-  const size_t doubles =
-      rows * (a.t_tiles + 1) +
-      (a.k_parts > 1
-           ? tiles * a.k_parts * kRows * kTile +
-                 static_cast<size_t>(a.BH) * a.row_tiles * a.k_parts * kRows
-           : 0);
-  sc.part = reinterpret_cast<double*>(a.scratch);
-  sc.nq0 = sc.part + rows * a.t_tiles;
-  sc.pdot = sc.nq0 + rows;
-  sc.pqn = sc.pdot + tiles * a.k_parts * kRows * kTile;
-  sc.W = reinterpret_cast<float*>(sc.part + (doubles + 1) / 2 * 2);
-  sc.floor = sc.W + rows * a.LP;
-  sc.inter = sc.floor + rows;
-  sc.ws = sc.inter + rows;
-  sc.decay = sc.ws + rows;
-  sc.hnum = sc.W + (rows * (a.LP + 3) + a.BH + 3) / 4 * 4;
+  const OutArgs o{a.C0, a.n0, a.C1, a.n1, a.sc, a.BH, a.L, a.LP, a.dh,
+                  a.t_tiles, a.d_tiles, a.n1_blocks, a.h_parts};
   mlstm_scores<T><<<dim3(a.BH, a.row_tiles, a.t_tiles * a.k_parts),
                     kThreads, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), a.i_pre,
-      a.f_pre, a.n0, a.m0, sc, a.m1, a.L, a.LP, a.dh, a.t_tiles, a.k_parts);
+      a.f_pre, a.n0, a.m0, a.sc, a.m1, a.L, a.LP, a.dh, a.t_tiles,
+      a.k_parts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (a.k_parts > 1) {
     mlstm_combine<<<dim3(a.BH, a.row_tiles, a.t_tiles), kThreads, 0,
-                    stream>>>(a.i_pre, a.f_pre, a.m0, sc, a.m1, a.L, a.LP,
+                    stream>>>(a.i_pre, a.f_pre, a.m0, a.sc, a.m1, a.L, a.LP,
                               a.t_tiles, a.k_parts);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  const long long blocks =
-      static_cast<long long>(a.BH) *
-      (a.t_tiles * a.d_tiles * a.h_parts + a.d_tiles * a.d_tiles +
-       a.n1_blocks);
-  mlstm_out<T><<<static_cast<unsigned>(blocks), kOut, 0, stream>>>(
+  mlstm_out<T><<<a.out_blocks, kOut, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.h), o);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.h_parts == 1) return e;
-  const long long quads = static_cast<long long>(rows) * (a.dh / 4);
-  mlstm_finish<T><<<static_cast<unsigned>((quads + kThreads - 1) / kThreads),
-                    kThreads, 0, stream>>>(static_cast<T*>(a.h), o);
+  mlstm_finish<T><<<a.finish_blocks, kThreads, 0, stream>>>(
+      static_cast<T*>(a.h), o);
   return cudaGetLastError();
 }
 
@@ -992,19 +971,32 @@ const char* mlstm_chunk_error_string(int code) {
 // dh): contiguous, 16-byte aligned, fp32 (is_bf16 = 0) or bf16 (is_bf16 =
 // 1); i_pre, f_pre (B*H, L), C0 and C1 (B*H, dh, dh, 16-byte aligned), n0
 // and n1 (B*H, dh), m0 and m1 (B*H,): contiguous fp32.  1 <= L <= 512; dh
-// a multiple of 8 from 8 to 1024.  scratch: 16-byte aligned, ops.plan's
-// layout; row_tiles, t_tiles, d_tiles, n1_blocks, h_parts: ops.plan's
-// grid, which must cover L and dh exactly.
+// a multiple of 8 from 8 to 1024.  sc: the regions of ops.plan's scratch
+// (pdot and pqn with dh in parts, hnum with h in parts; W and hnum 16-byte
+// aligned); the grid: ops.plan's, which must cover L and dh exactly, with
+// out_blocks the blocks mlstm_out decodes and finish_blocks covering h.
 int mlstm_chunk_launch(const Launch* a, void* stream) {
-  const auto covers = [](int tiles, int size, int n) {
+  const auto covers = [](long long tiles, long long size, long long n) {
     return tiles >= 1 && tiles * size >= n && (tiles - 1) * size < n;
   };
+  const auto aligned = [](const void* p) {
+    return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Scratch& sc = a->sc;
+  const long long BH = a->BH, h_values = BH * a->L * a->dh;
   if (a->BH < 1 || a->L < 1 || a->L > kMaxL || a->dh < 8 ||
       a->dh > kMaxDh || a->dh % 8 || a->LP < a->L || a->LP % 4 ||
       !covers(a->row_tiles, kRows, a->L) || !covers(a->t_tiles, kTile, a->L) ||
       !covers(a->d_tiles, kTile, a->dh) || !covers(a->n1_blocks, kN1, a->dh) ||
       !covers(a->h_parts, kHPart, a->dh) ||
-      !covers(a->k_parts, kSPart, a->dh)) {
+      !covers(a->k_parts, kSPart, a->dh) ||
+      a->out_blocks != BH * (a->t_tiles * a->d_tiles * a->h_parts +
+                             a->d_tiles * a->d_tiles + a->n1_blocks) ||
+      (a->h_parts > 1 ? !covers(a->finish_blocks, 4 * kThreads, h_values)
+                      : a->finish_blocks != 0) ||
+      !sc.part || !sc.nq0 || !aligned(sc.W) || !sc.floor || !sc.inter ||
+      !sc.ws || !sc.decay || (a->k_parts > 1 && (!sc.pdot || !sc.pqn)) ||
+      (a->h_parts > 1 && !aligned(sc.hnum))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -15,12 +15,15 @@ the gate factors to a scratch; then an output pass of h tiles, state tiles
 comes in parts along C0's rows, and a last launch adds them; above dh
 ``SCORE_DPART`` the scores pass runs in parts of dh, and a combine launch
 adds them before the output pass.  ``plan(B, H, L, dh)`` gives the grids
-and the scratch's layout; the wrapper allocates the scratch.
+and the scratch's layout, the one place either is worked out: the wrapper
+allocates the scratch and passes the kernels each region's address and
+the grid (``pack``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import pathlib
 import struct
 from typing import NamedTuple
@@ -45,9 +48,13 @@ H_PART = 256
 #: d a scores block takes: above it the scores pass runs in parts of dh
 #: and a combine launch adds them
 SCORE_DPART = 256
+#: the scratch's regions, in the order of ``Scratch`` in the source
+REGIONS = ("part", "nq0", "pdot", "pqn", "W", "floor", "inter", "ws",
+           "decay", "hnum")
 #: the kernels' arguments, packed into one struct (``Launch`` in the
-#: source): 13 pointers, then BH, L, dh, LP, is_bf16 and the plan's grid
-_LAUNCH = struct.Struct("<13Q11i")
+#: source): 12 tensor pointers, the scratch's regions, then BH, L, dh, LP,
+#: is_bf16 and the plan's grid
+_LAUNCH = struct.Struct(f"<{12 + len(REGIONS)}Q13i")
 
 
 def _cdiv(a, b):
@@ -65,84 +72,64 @@ class Plan(NamedTuple):
     n1_blocks: int   # n1 blocks (BH, n1_blocks), N1_COLUMNS columns each
     h_parts: int     # parts of C0's rows an h tile is split into
     k_parts: int     # parts of dh a scores tile is split into
-
-    @property
-    def scratch(self):
-        """The scratch, in order: W's row sums by column tile ``part`` (BH,
-        L, t_tiles), the state's part of the normaliser ``nq0`` (BH, L)
-        and, with dh in parts, the parts' dot products ``pdot`` (BH,
-        row_tiles, t_tiles, k_parts, 16, 64) and q . n0 ``pqn`` (BH,
-        row_tiles, k_parts, 16) in fp64, padded to 16 bytes; then in fp32
-        W (BH, L, LP), ``floor`` exp(-m), ``inter`` exp(m0 - g), ``ws``
-        exp(u - g_L) (BH, L), ``decay`` (BH,) and, from a 16-byte boundary,
-        h's numerator by part ``hnum`` (h_parts, BH, L, dh) when there is
-        more than one part.  ``{name: (offset in fp32 units, shape,
-        dtype)}``."""
-        BH, L, T, K = self.BH, self.L, self.t_tiles, self.k_parts
-        rows, at = BH * L, self._fp32_at
-        out = {"part": (0, (BH, L, T), torch.float64),
-               "nq0": (2 * rows * T, (BH, L), torch.float64)}
-        if K > 1:
-            R = self.row_tiles
-            out["pdot"] = (2 * rows * (T + 1), (BH, R, T, K, SCORE_ROWS, TILE),
-                           torch.float64)
-            out["pqn"] = (2 * (rows * (T + 1) + BH * R * T * K * SCORE_ROWS
-                               * TILE), (BH, R, K, SCORE_ROWS), torch.float64)
-        out["W"] = (at, (BH, L, self.LP), torch.float32)
-        at += rows * self.LP
-        for name in ("floor", "inter", "ws"):
-            out[name] = (at, (BH, L), torch.float32)
-            at += rows
-        out["decay"] = (at, (BH,), torch.float32)
-        if self.h_parts > 1:
-            out["hnum"] = (self._hnum_at, (self.h_parts, BH, L, self.dh),
-                           torch.float32)
-        return out
-
-    @property
-    def _fp32_at(self):
-        """Where the fp32 part starts: after the fp64 part, rounded up to
-        16 bytes."""
-        doubles = self.BH * self.L * (self.t_tiles + 1)
-        if self.k_parts > 1:
-            doubles += self.BH * self.row_tiles * self.k_parts * SCORE_ROWS \
-                * (self.t_tiles * TILE + 1)
-        return -(-doubles // 2) * 4
-
-    @property
-    def _hnum_at(self):
-        return self._fp32_at + -(-(self.BH * self.L * (self.LP + 3)
-                                   + self.BH) // 4) * 4
-
-    @property
-    def scratch_floats(self):
-        """Size of the scratch in fp32 units."""
-        if self.h_parts > 1:
-            return self._hnum_at + self.h_parts * self.BH * self.L * self.dh
-        return self._fp32_at + self.BH * self.L * (self.LP + 3) + self.BH
-
-    @property
-    def output_blocks(self):
-        """Blocks of the output pass: h tiles (each in h_parts parts), then
-        state tiles, then n1 blocks."""
-        return self.BH * (self.t_tiles * self.d_tiles * self.h_parts
-                          + self.d_tiles ** 2 + self.n1_blocks)
-
-    @property
-    def finish_blocks(self):
-        """Blocks of the third launch (4 columns of h a thread, 256 threads
-        a block), 0 when h comes in one part."""
-        if self.h_parts == 1:
-            return 0
-        return _cdiv(self.BH * self.L * self.dh // 4, 256)
+    output_blocks: int   # the output pass: h tiles (each in h_parts
+                         # parts), then state tiles, then n1 blocks
+    finish_blocks: int   # the third launch (4 columns of h a thread, 256
+                         # threads a block), 0 when h comes in one part
+    scratch: dict    # {region: (offset in fp32 units, shape, dtype)}
+    scratch_floats: int  # size of the scratch in fp32 units
 
 
 @functools.lru_cache(maxsize=1024)
 def plan(B, H, L, dh):
-    """Grids and scratch of the two launches for q (B, H, L, dh)."""
-    return Plan(B * H, L, dh, _cdiv(L, 4) * 4, _cdiv(L, SCORE_ROWS),
-                _cdiv(L, TILE), _cdiv(dh, TILE), _cdiv(dh, N1_COLUMNS),
-                _cdiv(dh, H_PART), _cdiv(dh, SCORE_DPART))
+    """Grids and scratch of the launches for q (B, H, L, dh).  The kernels
+    take both from here: the grid in the packed arguments, each region of
+    the scratch as a pointer.
+
+    The scratch, in order: W's row sums by column tile ``part`` (BH, L,
+    t_tiles), the state's part of the normaliser ``nq0`` (BH, L) and, with
+    dh in parts, the parts' dot products ``pdot`` (BH, row_tiles, t_tiles,
+    k_parts, 16, 64) and q . n0 ``pqn`` (BH, row_tiles, k_parts, 16) in
+    fp64; then in fp32, from a 16-byte boundary, W (BH, L, LP), ``floor``
+    exp(-m), ``inter`` exp(m0 - g), ``ws`` exp(u - g_L) (BH, L), ``decay``
+    (BH,) and, from a 16-byte boundary, h's numerator by part ``hnum``
+    (h_parts, BH, L, dh) when there is more than one part."""
+    BH, LP = B * H, _cdiv(L, 4) * 4
+    R, T, D = _cdiv(L, SCORE_ROWS), _cdiv(L, TILE), _cdiv(dh, TILE)
+    N1, HP, KP = _cdiv(dh, N1_COLUMNS), _cdiv(dh, H_PART), \
+        _cdiv(dh, SCORE_DPART)
+    scratch, at = {}, 0
+    f64, f32 = torch.float64, torch.float32
+    regions = [("part", (BH, L, T), f64), ("nq0", (BH, L), f64)]
+    if KP > 1:
+        regions += [("pdot", (BH, R, T, KP, SCORE_ROWS, TILE), f64),
+                    ("pqn", (BH, R, KP, SCORE_ROWS), f64)]
+    regions += [("W", (BH, L, LP), f32), ("floor", (BH, L), f32),
+                ("inter", (BH, L), f32), ("ws", (BH, L), f32),
+                ("decay", (BH,), f32)]
+    if HP > 1:
+        regions.append(("hnum", (HP, BH, L, dh), f32))
+    for name, shape, dtype in regions:
+        if name in ("W", "hnum"):
+            at = _cdiv(at, 4) * 4           # 16 bytes
+        scratch[name] = (at, shape, dtype)
+        at += math.prod(shape) * (2 if dtype is f64 else 1)
+    return Plan(BH, L, dh, LP, R, T, D, N1, HP, KP,
+                BH * (T * D * HP + D * D + N1),
+                _cdiv(BH * L * dh // 4, 256) if HP > 1 else 0, scratch, at)
+
+
+def pack(p, tensors, scratch, is_bf16):
+    """The kernels' arguments for plan ``p``: ``tensors`` the addresses of
+    q, k, v, i_pre, f_pre, C0, n0, m0, h, C1, n1, m1; ``scratch`` the
+    address of a scratch of ``p.scratch_floats`` fp32 values, each region
+    passed at its offset (0 for a region the plan has not)."""
+    regions = [scratch + 4 * p.scratch[name][0] if name in p.scratch else 0
+               for name in REGIONS]
+    return _LAUNCH.pack(*tensors, *regions, p.BH, p.L, p.dh, p.LP, is_bf16,
+                        p.row_tiles, p.t_tiles, p.d_tiles, p.n1_blocks,
+                        p.h_parts, p.k_parts, p.output_blocks,
+                        p.finish_blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,13 +223,10 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, C0, n0, m0):
         C1, n1, m1 = (torch.empty_like(t) for t in (C0, n0, m0))
         scratch = torch.empty(p.scratch_floats, dtype=torch.float32,
                               device=dev)
-        rc = lib.mlstm_chunk_launch(_LAUNCH.pack(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
-            f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            scratch.data_ptr(), p.BH, p.L, p.dh, p.LP,
-            q.dtype == torch.bfloat16, p.row_tiles, p.t_tiles, p.d_tiles,
-            p.n1_blocks, p.h_parts, p.k_parts), build.current_stream(dev))
+        rc = lib.mlstm_chunk_launch(pack(p, [
+            t.data_ptr() for t in (q, k, v, i_pre, f_pre, C0, n0, m0, h, C1,
+                                   n1, m1)], scratch.data_ptr(),
+            q.dtype == torch.bfloat16), build.current_stream(dev))
     if rc != 0:
         raise RuntimeError("mlstm_chunk: kernel launch failed: "
                            f"{lib.mlstm_chunk_error_string(rc).decode()} "

@@ -6,9 +6,9 @@ tensors take the plain version (``ref.py``); CUDA tensors launch the kernel
 one to the other.  ``rmsnorm.launches`` counts kernel launches
 (plain-version calls do not count).
 
-``plan(N, d, itemsize, sm_count)`` chooses the kernel's path, the 16-byte
-chunks a thread holds (K) and the grid, from the shape and the card's SM
-count alone:
+``plan(N, d, itemsize)`` chooses the kernel's path, the 16-byte chunks a
+thread holds (K) and the blocks that give every row its team, from the
+shape alone:
 
 - ``"warp"``: one warp a row, 4 rows a block, K = ceil(d / vector / 32)
   chunks a lane, up to ``WARP_K_MAX`` (rows up to ``WARP_MAX_D``);
@@ -18,8 +18,9 @@ count alone:
   8 bf16 values: 16 bytes) and rows wider than the block path holds; the
   row is read twice.
 
-The grid is at most the blocks that fit the card at once
-(``blocks_per_sm`` a SM), each walking rows with a stride.
+The grid is at most the blocks that fit the card at once (``resident``:
+the SM count times the library's occupancy calculator), each walking rows
+with a stride.
 """
 from __future__ import annotations
 
@@ -61,43 +62,45 @@ def block_max_d(itemsize):
     return THREADS["block"] * BLOCK_KS[itemsize][-1] * vector(itemsize)
 
 
-def blocks_per_sm(path, K, itemsize):
-    """Blocks of (path, K) that fit one SM at once, from the registers a
-    thread needs (about 32 besides the row's K chunks: 4 registers a chunk
-    of x, one a value of 1 + scale), at most 16.  ``chip_smoke.py`` holds
-    it to the occupancy calculator on the card."""
-    regs = 32 + K * (4 + vector(itemsize))
-    regs = -(-regs // 8) * 8
-    return max(1, min(16, 65536 // (THREADS[path] * regs)))
-
-
 class Plan(NamedTuple):
     path: str
     K: int          # 16-byte chunks a thread holds (0 on the loop path)
     threads: int
-    grid: int
+    blocks: int     # blocks that give every row its team (a warp a row on
+                    # the warp and loop paths, a block on the block path):
+                    # the most the grid takes
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(N, d, itemsize, sm_count):
-    """The kernel's path, K and grid for x (N, d) of ``itemsize`` bytes on
-    a card of ``sm_count`` SMs."""
+def plan(N, d, itemsize):
+    """The kernel's path, K and most blocks for x (N, d) of ``itemsize``
+    bytes."""
     vec = vector(itemsize)
     chunks, ragged = divmod(d, vec)
     if not ragged and chunks <= 32 * WARP_K_MAX[itemsize]:
-        K = -(-chunks // 32)
-        rows = THREADS["warp"] // 32
-        return Plan("warp", K, THREADS["warp"],
-                    min(-(-N // rows),
-                        sm_count * blocks_per_sm("warp", K, itemsize)))
+        return Plan("warp", -(-chunks // 32), THREADS["warp"],
+                    -(-N // (THREADS["warp"] // 32)))
     if not ragged and d <= block_max_d(itemsize):
         K = next(k for k in BLOCK_KS[itemsize]
                  if k * THREADS["block"] >= chunks)
-        return Plan("block", K, THREADS["block"],
-                    min(N, sm_count * blocks_per_sm("block", K, itemsize)))
-    rows = THREADS["loop"] // 32
-    return Plan("loop", 0, THREADS["loop"], min(-(-N // rows),
-                                                sm_count * 8))
+        return Plan("block", K, THREADS["block"], N)
+    return Plan("loop", 0, THREADS["loop"], -(-N // (THREADS["loop"] // 32)))
+
+
+@functools.lru_cache(maxsize=None)
+def resident(index, x_bf16, scale_bf16, path, K, ragged):
+    """Blocks of the kernel of (path, K) that card ``index`` holds at once:
+    its SM count times the library's occupancy calculator (``ragged``: the
+    loop path's scalar kernel).  One query a kernel, then cached."""
+    lib, _ = load_library()
+    with build.on_device(torch.device("cuda", index)):
+        per_sm = lib.rmsnorm_blocks_per_sm(x_bf16, scale_bf16,
+                                           PATHS.index(path), K,
+                                           1 if ragged else 16)
+    if per_sm < 1:
+        raise RuntimeError(f"rmsnorm: no occupancy for the {path} path, K "
+                           f"{K} (x bf16 {x_bf16}, scale bf16 {scale_bf16})")
+    return build.sm_count(torch.device("cuda", index)) * per_sm
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +111,7 @@ def load_library():
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rmsnorm_launch.argtypes = [vp] * 3 + [i, i, f] + [i] * 5 + [vp]
     lib.rmsnorm_launch.restype = i
-    lib.rmsnorm_blocks_per_sm.argtypes = [i] * 4
+    lib.rmsnorm_blocks_per_sm.argtypes = [i] * 5
     lib.rmsnorm_blocks_per_sm.restype = i
     lib.rmsnorm_error_string.argtypes = [i]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
@@ -154,13 +157,17 @@ def rmsnorm(x, scale, *, eps=1e-6):
     lib, _ = load_library()
     N, d = x.shape
     bf16 = x.dtype == torch.bfloat16
-    p = plan(N, d, x.element_size(), build.sm_count(dev))
+    scale_bf16 = scale.dtype == torch.bfloat16
+    p = plan(N, d, x.element_size())
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    grid = min(p.blocks, resident(index, bf16, scale_bf16, p.path, p.K,
+                                  d % vector(x.element_size()) != 0))
     with build.on_device(dev):
         out = torch.empty_like(x)
         rc = lib.rmsnorm_launch(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), N, d, float(eps),
-            bf16, scale.dtype == torch.bfloat16, PATHS.index(p.path), p.K,
-            p.grid, build.current_stream(dev))
+            bf16, scale_bf16, PATHS.index(p.path), p.K, grid,
+            build.current_stream(dev))
     if rc != 0:
         raise RuntimeError("rmsnorm: kernel launch failed: "
                            f"{lib.rmsnorm_error_string(rc).decode()} "

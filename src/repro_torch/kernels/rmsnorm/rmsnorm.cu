@@ -13,7 +13,8 @@
 // would limit, so the kernel is bound by the bytes of x and out.  The
 // design is about moving each byte once with enough bytes in flight.
 //
-// Design (the path, K and the grid come from `ops.plan`, in Python):
+// Design (the path and K come from `ops.plan`, in Python; the grid from
+// `ops.resident`, the occupancy calculator below):
 //   - warp path: one warp a row, 4 warps a block.  A lane holds K 16-byte
 //     chunks of its row (4 fp32 or 8 bf16 values each; chunk c of the row
 //     at lane c % 32), all K loads issued before the sum of squares, so a
@@ -26,14 +27,14 @@
 //   - loop path: widths that are not a multiple of the 16-byte vector, and
 //     rows wider than the block path holds, take the two-pass loop (one
 //     warp a row, the row read again for the output).
-// In every path the grid is at most the blocks that fit the card at once;
-// a warp (or block) walks rows with a stride and keeps 1 + scale for its
-// chunks in registers across rows, so scale is read once per warp.  x is
-// loaded and out stored with the streaming hint (evict first): each byte
-// is touched once.  K stops where ptxas would spill (bf16 warp path: K 11;
-// at K 12 it keeps a thread under 168 registers and spills).  Sums go
-// across the warp with shuffles in a fixed order, so a result repeats
-// exactly.
+// In every path the grid is at most the blocks that fit the card at once
+// (rmsnorm_blocks_per_sm); a warp (or block) walks rows with a stride and
+// keeps 1 + scale for its chunks in registers across rows, so scale is
+// read once per warp.  x is loaded and out stored with the streaming hint
+// (evict first): each byte is touched once.  K stops where ptxas would
+// spill (bf16 warp path: K 11; at K 12 it keeps a thread under 168
+// registers and spills).  Sums go across the warp with shuffles in a fixed
+// order, so a result repeats exactly.
 //
 // Plain C interface (loaded with ctypes): the caller allocates the output,
 // the launch goes on the caller's stream, nothing synchronises, and the
@@ -334,8 +335,8 @@ const char* rmsnorm_error_string(int code) {
 
 // x and out (N, d), scale (d,): contiguous, 16-byte aligned.  x_bf16: x and
 // out are bf16 (else fp32); scale_bf16: scale is bf16 (else fp32; a bf16
-// scale needs bf16 x).  path (0 warp, 1 block, 2 loop), k and grid as
-// ops.plan chooses them; the warp and block paths need d a multiple of the
+// scale needs bf16 x).  path (0 warp, 1 block, 2 loop) and k as ops.plan
+// chooses them, grid as ops.rmsnorm sizes it; the warp and block paths need d a multiple of the
 // vector width (4 fp32, 8 bf16) with d / vector <= k * 32 (warp) or
 // k * 256 (block).
 int rmsnorm_launch(const void* x, const void* scale, void* out, int N, int d,
@@ -357,13 +358,14 @@ int rmsnorm_launch(const void* x, const void* scale, void* out, int N, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of (path, k) that fit one SM at once (the occupancy calculator),
-// or -1 for a (path, k) the library is not built for; chip_smoke.py holds
-// ops.plan's blocks an SM to it.
-int rmsnorm_blocks_per_sm(int x_bf16, int scale_bf16, int path, int k) {
+// Blocks of the kernel of (path, k) for rows of width d (d picks the loop
+// path's kernel) that fit one SM at once (the occupancy calculator), or -1
+// for a (path, k) the library is not built for; ops.resident sizes the
+// grid with it.
+int rmsnorm_blocks_per_sm(int x_bf16, int scale_bf16, int path, int k,
+                          int d) {
   int threads = 0, blocks = 0;
-  void* fn = pick_kernel(x_bf16, scale_bf16, path, k,
-                         x_bf16 ? 8 : 4, &threads);
+  void* fn = pick_kernel(x_bf16, scale_bf16, path, k, d, &threads);
   if (fn == nullptr) return -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0)
       != cudaSuccess)

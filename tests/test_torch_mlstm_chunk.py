@@ -12,9 +12,9 @@ against one reference chunk of twice the length.  Tolerances are those of
 its intra-chunk products in the input dtype), two chunks chained 2e-4
 (atol = rtol); at L 256 and dh 1024 an fp32 h is held against float64
 scaled by its row's condition number, as the card check holds it.  The
-kernels' grids and scratch (``ops.plan``) are checked here; the CUDA
-kernels themselves are held to the plain version on the card by
-``tests/test_torch_gpu.py``.
+kernels' grids and scratch (``ops.plan``) and the arguments they receive
+(``ops.pack``) are checked here; the CUDA kernels themselves are held to
+the plain version on the card by ``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -238,6 +238,34 @@ def test_plain_matches_jax_kernel_at_wide_heads(B, H, L, dh, fresh, dtype):
         assert bool(((h - h64).abs() <= allowed).all())
 
 
+@pytest.mark.parametrize("fresh", [True, False])
+def test_jax_kernel_at_the_longest_chunk_is_within_tolerance_of_float64(
+        fresh):
+    """At L 512 (dh 64, fp32), the longest chunk the port's kernel takes,
+    ``chip_smoke.py`` holds the kernel to the plain version run in float64
+    instead of the fp32 plain version, whose own C1 on the card is off
+    float64 by more than the tolerance (``MLSTM_FP32_REF_MAX_L``).  The
+    reference's fp32 arithmetic agrees with float64 there: the JAX kernel
+    (interpret mode) gives C1, n1 and m1 within 2e-5 of the plain version
+    in float64, and h within 2e-5 (1 + |h64|) times its row's condition
+    number capped at 16, as the card's h is held.  The plain version in
+    fp32 on the CPU is held the same way, and to the JAX kernel at 2e-5."""
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_condition
+    arrays = _inputs(1, 1, 512, 64, seed=13, fresh=fresh)
+    port = _port(arrays)
+    ref = jax_kernel(*_jax(arrays))
+    _assert_close(port[1:], ref[1:], TOL["float32"])
+    t = [torch.from_numpy(a) for a in arrays]
+    want = ops.mlstm_chunk_ref(*(x.double() for x in t))
+    kappa = mlstm_chunk_condition(t[0], t[1], t[3], t[4], t[6], t[7])
+    allowed = TOL["float32"] * (1 + want[0].abs()) \
+        * kappa.clamp(max=16.0)[..., None]
+    for got in (port, [torch.from_numpy(np.array(r)) for r in ref]):
+        _assert_close([x.double() for x in got[1:]], want[1:],
+                      TOL["float32"])
+        assert bool(((got[0].double() - want[0]).abs() <= allowed).all())
+
+
 @pytest.mark.parametrize("B,H,L,dh", [(1, 1, 1, 8), (2, 4, 128, 64),
                                       (1, 2, 100, 64), (1, 4, 128, 1024),
                                       (1, 2, 200, 72), (3, 1, 512, 8),
@@ -305,3 +333,30 @@ def test_plan_scratch_matches_the_shapes(B, H, L, dh):
         assert got_dt == (dt or torch.float32)
         at += int(np.prod(shape)) * (2 if dt == torch.float64 else 1)
     assert p.scratch_floats == at
+
+
+@pytest.mark.parametrize("B,H,L,dh", [(1, 1, 1, 8), (2, 4, 128, 64),
+                                      (1, 4, 128, 1024), (3, 1, 5, 264)])
+@pytest.mark.parametrize("is_bf16", [False, True])
+def test_pack_passes_each_region_at_its_plan_offset(B, H, L, dh, is_bf16):
+    """What the kernels receive (``ops.pack``): the twelve tensor addresses
+    in order, each scratch region at the base plus its ``ops.plan`` offset
+    (0 for a region the plan has not: ``pdot``/``pqn`` up to dh 256,
+    ``hnum`` up to dh 256), then the sizes, the dtype flag and the plan's
+    grid, the output and finish launches' blocks included."""
+    p = ops.plan(B, H, L, dh)
+    tensors = [0x1000 * (i + 1) for i in range(12)]
+    base = 0x100000
+    got = ops._LAUNCH.unpack(ops.pack(p, tensors, base, is_bf16))
+    assert list(got[:12]) == tensors
+    absent = ({"pdot", "pqn"} if dh <= ops.SCORE_DPART else set()) \
+        | ({"hnum"} if dh <= ops.H_PART else set())
+    assert set(ops.REGIONS) - set(p.scratch) == absent
+    regions = dict(zip(ops.REGIONS, got[12:12 + len(ops.REGIONS)]))
+    for name in ops.REGIONS:
+        assert regions[name] == (base + 4 * p.scratch[name][0]
+                                 if name in p.scratch else 0)
+    assert list(got[12 + len(ops.REGIONS):]) == [
+        B * H, L, dh, p.LP, int(is_bf16), p.row_tiles, p.t_tiles,
+        p.d_tiles, p.n1_blocks, p.h_parts, p.k_parts, p.output_blocks,
+        p.finish_blocks]

@@ -7,9 +7,9 @@ run it) and to the JAX ``rmsnorm_ref`` over ``tests/test_kernels.py``'s
 sweep (N, d of (8, 32), (37, 64), (256, 128), (5, 256); fp32 and bf16, the
 scale in x's dtype), plus a bf16 x with an fp32 scale.  Tolerances are those
 of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2 (atol = rtol).  The
-kernel's planner (``ops.plan``: path, K and grid from the shape and the SM
-count) is checked here; the CUDA kernel itself is held to the plain
-version on the card by ``tests/test_torch_gpu.py``.
+kernel's planner (``ops.plan``: path, K and blocks from the shape) is
+checked here; the CUDA kernel itself is held to the plain version on the
+card by ``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -102,14 +102,14 @@ def test_plan_switches_path_at_the_stated_widths(itemsize):
     vec = ops.vector(itemsize)
     top, wide = ops.warp_max_d(itemsize), ops.block_max_d(itemsize)
     assert top == 32 * ops.WARP_K_MAX[itemsize] * vec
-    got = {d: ops.plan(64, d, itemsize, 132) for d in
+    got = {d: ops.plan(64, d, itemsize) for d in
            (vec, top, top + vec, 4096, 8192, wide, wide + vec, top + 1, 99)}
     assert [got[d].path for d in got] == [
         "warp", "warp", "block", "block", "block", "block", "loop", "loop",
         "loop"]
     assert got[top].K == ops.WARP_K_MAX[itemsize]
     assert got[wide].K == ops.BLOCK_KS[itemsize][-1]
-    assert ops.plan(64, 2560, 2, 132)[:2] == ("warp", 10)   # qwen3-4b bf16
+    assert ops.plan(64, 2560, 2)[:2] == ("warp", 10)   # qwen3-4b bf16
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
@@ -119,7 +119,7 @@ def test_plan_holds_each_row_in_its_chunks(itemsize, d):
     """The chunks a row's team holds (K a thread on the warp path's 32
     lanes or the block path's 256 threads) cover the row, and on the warp
     path K is the least that does."""
-    p = ops.plan(5, d, itemsize, 132)
+    p = ops.plan(5, d, itemsize)
     chunks, ragged = divmod(d, ops.vector(itemsize))
     if p.path == "loop":
         assert ragged or d > ops.block_max_d(itemsize)
@@ -137,18 +137,19 @@ def test_plan_holds_each_row_in_its_chunks(itemsize, d):
                                         (100, 2)])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_plan_covers_every_row_once(N, d, itemsize, sms):
-    """The grid is at most the blocks that fit the card at once and at
-    most what N needs, and the teams' row walks cover every row exactly
-    once."""
-    p = ops.plan(N, d, itemsize, sms)
+    """The plan's blocks give every row its team (a warp, or the block on
+    the block path); the grid, those blocks cut to what the card holds at
+    once (here ``sms`` SMs of 4 blocks; the wrapper asks the occupancy
+    calculator), covers every row exactly once through the teams' row
+    walks."""
+    p = ops.plan(N, d, itemsize)
     assert p.threads == ops.THREADS[p.path]
-    cap = sms * (8 if p.path == "loop"
-                 else ops.blocks_per_sm(p.path, p.K, itemsize))
     rows = 1 if p.path == "block" else p.threads // 32
-    assert 1 <= p.grid <= min(cap, -(-N // rows))
+    assert p.blocks == -(-N // rows)
+    grid = min(p.blocks, 4 * sms)
     # the kernel's row walk: team i (a warp, or the block on the block
     # path) takes rows i, i + teams, i + 2 teams, ...
-    teams = p.grid * (1 if p.path == "block" else p.threads // 32)
+    teams = grid * rows
     walks = [range(team, N, teams) for team in range(teams)]
     assert sorted(r for walk in walks for r in walk) == list(range(N))
 

@@ -65,8 +65,6 @@ def probe_build():
                 print(f"[build] {name} {entry}: "
                       f"{line.split(':', 1)[1].strip()}; {frame}")
                 entry = None
-        if not log:
-            print(f"[build] {name}: already built")
     _sass_by_function(mops)
 
 
@@ -166,12 +164,10 @@ def _mlstm_host(cs, torch):
     stream = build.current_stream(dev)
 
     def launch():
-        return lib.mlstm_chunk_launch(ops._LAUNCH.pack(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
-            f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            scratch.data_ptr(), p.BH, p.L, p.dh, p.LP, False, p.row_tiles,
-            p.t_tiles, p.d_tiles, p.n1_blocks, p.h_parts, p.k_parts), stream)
+        return lib.mlstm_chunk_launch(ops.pack(p, [
+            t.data_ptr() for t in (q, k, v, i_pre, f_pre, C0, n0, m0, h, C1,
+                                   n1, m1)], scratch.data_ptr(), False),
+            stream)
 
     pieces = {
         "check": lambda: ops.check(*args, kernel=True),
