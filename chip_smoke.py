@@ -9,12 +9,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    — build the five CUDA kernels from the sources in this
               checkout, one ``nvcc`` per source, all started together;
               print each one's ptxas summary and how many tensor-core
-              instructions (HGMMA, HMMA) the flash-attention library's SASS
-              holds, and fail if it holds none;
+              instructions (HGMMA, HMMA) the flash-attention and
+              exit-confidence libraries' SASS holds, and fail if either
+              holds none;
 3. kernel   — hold each kernel against its plain PyTorch version on the
-              card: the exit kernel at the classifier path's shapes, a
-              ragged several-slab vocab, the qwen3-4b exit head in fp32 and
-              bf16 and exact ties; the decode-attention kernels at the decode
+              card: the exit kernels at the classifier path's shapes, a
+              ragged vocab, the qwen3-4b exit head in fp32 and bf16 (also
+              against the model of the bf16 kernel's hi + lo rows), exact
+              ties (also across two blocks' runs), the edges of each path
+              of its ``ops.plan`` (one tile of columns and one more, V % 8
+              != 0 in bf16, the widest d and a d off the k chunk, N 1-8
+              and 13), two launches bitwise equal and each row of an N 8
+              bf16 head launch bitwise its launch alone; the
+              decode-attention kernels at the decode
               path's shapes and S 4096 in bf16 and fp32 with ragged
               positions, unwritten slots, a ring (one whose valid slots
               straddle a split), a window and a row with no valid slot, and
@@ -30,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               fresh and with a state, and two chunks chained at dh 64 and
               128);
 4. timing   — CUDA-event times of each kernel and its plain version beside
-              the bound, and of its library call where one PyTorch call
+              the bound (the exit kernels at the classifier's shape, the
+              qwen3-4b head in fp32 and in bf16 at N 1, 2, 4, 8, each also
+              as device time alone beside ``torch.matmul(hn, w_out)``
+              alone), and of its library call where one PyTorch call
               computes the same function (``scaled_dot_product_attention``
               for both attention kernels, ``rms_norm``), each timed output
               held against its plain version; for RMSNorm, flash
@@ -166,25 +176,34 @@ KERNELS = ("exit_confidence", "decode_attention", "rmsnorm",
            "flash_attention", "mlstm_chunk")
 
 
-def _sass_counts(library) -> dict:
-    """How many tensor-core instructions the library's SASS holds
-    (``cuobjdump -sass``): HGMMA (Hopper's warpgroup ``wgmma``) and HMMA
-    (``mma.sync``), beside the fp32 FFMAs."""
+def _sass_ops(library) -> dict:
+    """{function: its SASS opcodes in order} of the library
+    (``cuobjdump -sass``)."""
     from repro_torch.kernels import build
     cuobjdump = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    ops = [m.group(1).split(".")[0] for m in re.finditer(
-        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", sass)]
+    op = re.compile(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
+    return {part.split(None, 1)[0]: [m.group(1).split(".")[0]
+                                     for m in op.finditer(part)]
+            for part in sass.split("Function : ")[1:]}
+
+
+def _sass_counts(library) -> dict:
+    """How many tensor-core instructions the library's SASS holds
+    (``cuobjdump -sass``): HGMMA (Hopper's warpgroup ``wgmma``) and HMMA
+    (``mma.sync``), beside the fp32 FFMAs."""
+    ops = [op for fn in _sass_ops(library).values() for op in fn]
     return {op: ops.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
 
 
 def phase_build() -> dict:
     """Build every kernel library at once (one nvcc per source); fail if
     ptxas spills in an RMSNorm register-path kernel; return the
-    flash-attention library's SASS counts, which must show tensor-core
-    instructions (the bf16 kernel's products)."""
+    flash-attention and exit-confidence libraries' SASS counts, which must
+    each show tensor-core instructions (the bf16 kernels' products)."""
     from repro_torch.kernels import build
     mods = {name: importlib.import_module(f"repro_torch.kernels.{name}.ops")
             for name in KERNELS}
@@ -203,12 +222,16 @@ def phase_build() -> dict:
     if not rows or any(rows.values()):
         raise AssertionError(f"rmsnorm: ptxas spills on the register "
                              f"paths: {rows}")
-    sass = _sass_counts(build.library_path(mods["flash_attention"].SOURCE))
-    print(f"[build] flash_attention SASS: {sass['HGMMA']} HGMMA, "
-          f"{sass['HMMA']} HMMA, {sass['FFMA']} FFMA (the fp32 kernel)")
-    if not sass["HGMMA"] + sass["HMMA"]:
-        raise AssertionError("flash_attention: the library holds no "
-                             "tensor-core instruction")
+    sass = {}
+    for name, note in (("flash_attention", "the fp32 kernel"),
+                       ("exit_confidence", "the fp32 kernels")):
+        sass[name] = _sass_counts(build.library_path(mods[name].SOURCE))
+        print(f"[build] {name} SASS: {sass[name]['HGMMA']} HGMMA, "
+              f"{sass[name]['HMMA']} HMMA, {sass[name]['FFMA']} FFMA "
+              f"({note})")
+        if not sass[name]["HGMMA"] + sass[name]["HMMA"]:
+            raise AssertionError(f"{name}: the library holds no "
+                                 "tensor-core instruction")
     return sass
 
 
@@ -233,33 +256,93 @@ def _exit_inputs(n, d, v, seed, *, ties=(), dtype=torch.float32):
     return tuple(t.to("cuda", dtype) for t in (h, scale, w))
 
 
+def _exit_errors(got, want):
+    """Largest abs errors of conf / max_logit / lse and whether pred is
+    equal."""
+    return ([float((a - b).abs().max()) for a, b in
+             zip((got[0], got[2], got[3]), (want[0], want[2], want[3]))],
+            bool(torch.equal(got[1], want[1])))
+
+
+def _exit_straddling_ties(n, d, v, dtype):
+    """Columns for a tie that straddles the first two blocks' runs of
+    ``ops.plan`` at this shape on this card: block 0's last column, block
+    1's first and the last column."""
+    from repro_torch.kernels.exit_confidence import ops
+    p = ops.launch_plan(n, d, v, dtype.itemsize, True,
+                        torch.cuda.current_device())
+    runs = p.runs
+    if p.path != "bulk" or len(runs) < 2:
+        raise AssertionError(f"exit_confidence: {n}x{d}x{v} does not span "
+                             f"two blocks ({p.path}, {len(runs)} blocks)")
+    edge = runs[1][0] * ops.TILE
+    return (edge - 1, edge, v - 1)
+
+
 def check_exit_confidence(verbose: bool = True) -> float:
-    """Kernel against plain version at the path's shapes, a ragged vocab,
-    the qwen3-4b head (fp32 at N 8, bf16 at every batch bucket, as the
-    decode path launches it) and exact ties.  Returns the largest abs error of
-    conf / max_logit / lse; raises on any disagreement."""
+    """Kernels against plain version at the edges of each path of
+    ``ops.plan``: the classifier's shapes and one tile of columns (one
+    launch), one tile + 1 column (plain loads), a tile + 8 (the bulk-copy
+    ring), V % 8 != 0 in bf16 at the qwen3-4b head, the widest d
+    (``ops.MAX_DIM``), a d that is not a multiple of the k chunk and one
+    whose rows of h are not 16-byte (element loads for the sums of
+    squares), on the streaming paths and on the one-launch path (several
+    k chunks there), N 1-8 and 13, exact ties inside a block's run and
+    across two blocks' runs; the qwen3-4b head (fp32 at N 8, bf16 at every
+    batch bucket, as the decode path launches it); every bf16 case also
+    against the model of the bf16 kernel's numerics
+    (``exit_confidence_ref_split``); two launches bitwise equal; each row
+    of the N 8 bf16 head launch bitwise its launch alone.
+    Returns the largest abs error of conf / max_logit / lse; raises on any
+    disagreement."""
+    from repro_torch.kernels.exit_confidence import ops
     from repro_torch.kernels.exit_confidence.ops import exit_confidence
-    from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
+    from repro_torch.kernels.exit_confidence.ref import (
+        exit_confidence_ref, exit_confidence_ref_split)
+    bf16 = torch.bfloat16
     d, v = QWEN3_4B_HEAD[1:]
+    tile = ops.TILE
     cases = [(f"path N={n}", (n, 128, 10), {}) for n in BATCH_BUCKETS]
     cases += [("ragged N=13 V=1000", (13, 128, 1000), {}),
               ("qwen3-4b head", QWEN3_4B_HEAD, {})]
     # the decode path's batch buckets at the qwen3-4b head, rows of one
     # bf16 input (one 0.78 GB w_out serves them all)
     cases += [(f"qwen3-4b head bf16 N={n}", (n, d, v),
-               {"dtype": torch.bfloat16, "head_rows": True})
+               {"dtype": bf16, "head_rows": True})
               for n in sorted(BATCH_BUCKETS, reverse=True)]
-    cases += [("ragged bf16 N=13 V=1000", (13, 128, 1000),
-               {"dtype": torch.bfloat16}),
+    cases += [("ragged bf16 N=13 V=1000", (13, 128, 1000), {"dtype": bf16}),
               ("ragged bf16 N=3 V=1001 (no 16-byte rows)", (3, 128, 1001),
-               {"dtype": torch.bfloat16}),
+               {"dtype": bf16}),
               ("ties in slab + across", (13, 128, 1000),
                {"ties": (100, 200, 700)}),
               ("ties across slabs", (13, 128, 1000), {"ties": (300, 900)}),
               ("ties bf16 in slab", (13, 128, 1000),
-               {"ties": (100, 200, 700), "dtype": torch.bfloat16}),
+               {"ties": (100, 200, 700), "dtype": bf16}),
               ("ties bf16 across slabs", (13, 128, 3000),
-               {"ties": (300, 1500, 2900), "dtype": torch.bfloat16})]
+               {"ties": (300, 1500, 2900), "dtype": bf16})]
+    # the edges of each path of ops.plan
+    for dt in (torch.float32, bf16):
+        cases += [(f"one tile {_dt(dt)}", (8, 256, tile), {"dtype": dt}),
+                  (f"one tile + 1 {_dt(dt)}", (8, 256, tile + 1),
+                   {"dtype": dt}),
+                  (f"tile + 8 {_dt(dt)}", (5, 256, tile + 8), {"dtype": dt}),
+                  (f"widest d {_dt(dt)}", (8, ops.MAX_DIM, 1024),
+                   {"dtype": dt}),
+                  (f"d 2600 (not a multiple of the k chunk) {_dt(dt)}",
+                   (8, 2600, 5000), {"dtype": dt}),
+                  (f"d 2601 (rows of h not 16-byte) {_dt(dt)}",
+                   (5, 2601, 3000), {"dtype": dt}),
+                  (f"one launch, widest d {_dt(dt)}", (3, ops.MAX_DIM, tile),
+                   {"dtype": dt}),
+                  (f"one launch, d 1001 {_dt(dt)}", (8, 1001, 10),
+                   {"dtype": dt})]
+        cases += [(f"N={n} {_dt(dt)}", (n, 256, 3000), {"dtype": dt})
+                  for n in (*range(1, 9), 13)]
+        ties = _exit_straddling_ties(13, 128, 40000, dt)
+        cases.append((f"ties straddling two blocks' runs {_dt(dt)} {ties}",
+                      (13, 128, 40000), {"ties": ties, "dtype": dt}))
+    cases.append(("qwen3-4b head bf16 V % 8 != 0", (8, d, v - 1),
+                  {"dtype": bf16}))
     worst = 0.0
     head = None
     for i, (label, (n, d, v), kw) in enumerate(cases):
@@ -270,28 +353,72 @@ def check_exit_confidence(verbose: bool = True) -> float:
             h, scale, w = head
             h = h[:n].contiguous()
         else:
-            h, scale, w = _exit_inputs(n, d, v, seed=i, **kw)
+            h, scale, w = _exit_inputs(
+                n, d, v, seed=i, **{k: x for k, x in kw.items()
+                                    if k != "head_rows"})
+        path = ops.launch_plan(n, d, v, h.element_size(),
+                               ops.rows_aligned(v, h.element_size(),
+                                                w.data_ptr()),
+                               torch.cuda.current_device()).path
         got = exit_confidence(h, scale, w)
+        again = exit_confidence(h, scale, w)
         torch.cuda.synchronize()
         want = exit_confidence_ref(h, scale, w)
         torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in
-                zip((got[0], got[2], got[3]), (want[0], want[2], want[3]))]
-        same_pred = bool(torch.equal(got[1], want[1]))
+        errs, same_pred = _exit_errors(got, want)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        shapes = all(t.shape == (n,) and bool(torch.isfinite(t).all())
+                     for t in (got[0], got[2], got[3]))
+        split = ""
+        if h.dtype == bf16:
+            s_errs, s_pred = _exit_errors(
+                got, exit_confidence_ref_split(h, scale, w))
+            split = (f"; against the split model conf {s_errs[0]:.3e} "
+                     f"max_logit {s_errs[1]:.3e} lse {s_errs[2]:.3e} pred "
+                     f"{'equal' if s_pred else 'DIFFER'}")
+            if not s_pred or s_errs[0] > CONF_ATOL or s_errs[1] > STAT_ATOL \
+                    or s_errs[2] > STAT_ATOL:
+                raise AssertionError(f"exit_confidence {label}: kernel "
+                                     f"disagrees with the split model: "
+                                     f"errors {s_errs}, pred equal {s_pred}")
         if verbose:
-            print(f"[kernel] exit_confidence {label} (N={n}, d={d}, V={v}): "
-                  f"conf {errs[0]:.3e} max_logit {errs[1]:.3e} "
-                  f"lse {errs[2]:.3e} pred {'equal' if same_pred else 'DIFFER'}")
+            print(f"[kernel] exit_confidence {label} (N={n}, d={d}, V={v}, "
+                  f"{path} path): conf {errs[0]:.3e} max_logit "
+                  f"{errs[1]:.3e} lse {errs[2]:.3e} pred "
+                  f"{'equal' if same_pred else 'DIFFER'}; two launches "
+                  f"{'bitwise equal' if repeat else 'DIFFER'}{split}")
         if kw.get("ties") and not bool((got[1] == kw["ties"][0]).all()):
             raise AssertionError(f"{label}: kernel argmax {got[1].tolist()} "
                                  f"is not the first tied column "
                                  f"{kw['ties'][0]}")
         if not same_pred or errs[0] > CONF_ATOL or errs[1] > STAT_ATOL \
-                or errs[2] > STAT_ATOL:
+                or errs[2] > STAT_ATOL or not repeat or not shapes \
+                or got[1].dtype != torch.int32:
             raise AssertionError(f"exit_confidence {label}: kernel disagrees "
                                  f"with the plain version: errors {errs}, "
-                                 f"pred equal {same_pred}")
+                                 f"pred equal {same_pred}, two launches "
+                                 f"equal {repeat}, shapes and finite "
+                                 f"{shapes}")
         worst = max(worst, *errs)
+        del h, scale, w, got, again, want
+    # decode rows stay batch-independent: each row of the N 8 head launch
+    # is bitwise that row launched alone
+    h, scale, w = head
+    batched = exit_confidence(h, scale, w)
+    alone = [exit_confidence(h[r:r + 1].contiguous(), scale, w)
+             for r in range(h.shape[0])]
+    torch.cuda.synchronize()
+    same = all(torch.equal(batched[k][r:r + 1], alone[r][k])
+               for r in range(h.shape[0]) for k in range(4))
+    if verbose:
+        print(f"[kernel] exit_confidence qwen3-4b head bf16: each row of the "
+              f"N 8 launch {'bitwise equal to' if same else 'DIFFERS from'} "
+              f"its launch alone")
+    if not same:
+        raise AssertionError("exit_confidence: a row of the N 8 bf16 head "
+                             "launch differs from its launch alone")
+    del head, h, scale, w
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -809,10 +936,75 @@ def _time_pair(kernel, plain, iters):
     return (k1, k2), (p1, p2)
 
 
+EXIT_TIMED = (("path", (8, 128, 10), torch.float32, 2000),
+              ("qwen3-4b head", QWEN3_4B_HEAD, torch.float32, 50),
+              *((f"qwen3-4b head bf16{'' if n == 8 else f' N={n}'}",
+                 (n, *QWEN3_4B_HEAD[1:]), torch.bfloat16, 50)
+                for n in sorted(BATCH_BUCKETS, reverse=True)))
+
+
+def _exit_matmul_inputs(h, scale):
+    """hn in h's dtype: the operand of ``torch.matmul(hn, w_out)``, the
+    yardstick of what the card streams w_out's bytes at."""
+    x = h.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
+    return (x * (1.0 + scale.float())).to(h.dtype)
+
+
+def _time_exit_confidence() -> dict:
+    """The exit kernels at the classifier's shape, the qwen3-4b head in fp32
+    and in bf16 at every batch bucket (rows of one input): CUDA events in
+    turns with the plain version, device time alone (``_device_ms``), and
+    ``torch.matmul(hn, w_out)`` alone beside them (``matmul_ms``: what the
+    card streams the same bytes at; it does not compute the function and
+    the port never calls it); each timed output held against the plain
+    version."""
+    from repro_torch.kernels import bounds
+    from repro_torch.kernels.exit_confidence.ops import exit_confidence
+    from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
+    out, inputs = {}, {}
+    for label, shape, dtype, iters in EXIT_TIMED:
+        key = (shape[1:], dtype)
+        if key not in inputs:
+            inputs.clear()
+            inputs[key] = _exit_inputs(max(shape[0], 8), *shape[1:],
+                                       seed=100, dtype=dtype)
+        h, scale, w = inputs[key]
+        h = h[:shape[0]].contiguous()
+        ks, ps = _time_pair(lambda: exit_confidence(h, scale, w),
+                            lambda: exit_confidence_ref(h, scale, w), iters)
+        dev = [_device_ms(lambda: exit_confidence(h, scale, w))
+               for _ in range(2)]
+        hn = _exit_matmul_inputs(h, scale)
+        mm = [_device_ms(lambda: torch.matmul(hn, w)) for _ in range(2)]
+        errs, same_pred = _exit_errors(exit_confidence(h, scale, w),
+                                       exit_confidence_ref(h, scale, w))
+        if not same_pred or errs[0] > CONF_ATOL or max(errs[1:]) > STAT_ATOL:
+            raise AssertionError(f"exit_confidence {label}: the timed output "
+                                 f"is off the plain version ({errs}, pred "
+                                 f"equal {same_pred})")
+        bound, by = bounds.exit_confidence(*shape, itemsize=h.element_size())
+        out[label] = dict(shape=list(shape), dtype=str(dtype), ms=min(ks),
+                          plain_ms=min(ps), bound_ms=bound, bound_by=by,
+                          library_ms=None, device_ms=min(dev),
+                          matmul_ms=min(mm), max_abs_err=max(errs))
+        print(f"[timing] exit_confidence {label} N,d,V={shape}: kernel "
+              f"{ks[0]:.5f}/{ks[1]:.5f} ms, device time alone (graph "
+              f"replay) {dev[0]:.5f}/{dev[1]:.5f} ms, plain "
+              f"{ps[0]:.5f}/{ps[1]:.5f} ms, torch.matmul(hn, w_out) alone "
+              f"{mm[0]:.5f}/{mm[1]:.5f} ms, bound {bound:.6f} ms ({by}); "
+              f"max abs err to the plain version {max(errs):.3e}")
+        del h, hn
+    inputs.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing() -> dict:
     """Kernel, plain version (and library call) timed in turns; each beside
     its bound from ``repro_torch.kernels.bounds`` (HBM bytes or fp32
-    flops at the published H100 SXM peaks).  Decode attention at B 8 with
+    flops at the published H100 SXM peaks).  The exit kernels as
+    ``_time_exit_confidence`` times them.  Decode attention at B 8 with
     S 1024 and 4096 and at B 1 with S 1024, every slot valid; its timed
     outputs are held against the plain version, and the split length the
     wrapper does not take at that S is timed beside the one it takes, and
@@ -821,25 +1013,7 @@ def phase_timing() -> dict:
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.exit_confidence.ops import exit_confidence
-    from repro_torch.kernels.exit_confidence.ref import exit_confidence_ref
-    out = {}
-    for label, shape, dtype, iters in (
-            ("path", (8, 128, 10), torch.float32, 2000),
-            ("qwen3-4b head", QWEN3_4B_HEAD, torch.float32, 50),
-            ("qwen3-4b head bf16", QWEN3_4B_HEAD, torch.bfloat16, 50)):
-        h, scale, w = _exit_inputs(*shape, seed=100, dtype=dtype)
-        ks, ps = _time_pair(lambda: exit_confidence(h, scale, w),
-                            lambda: exit_confidence_ref(h, scale, w), iters)
-        bound, by = bounds.exit_confidence(*shape,
-                                           itemsize=h.element_size())
-        out[label] = dict(shape=list(shape), dtype=str(dtype), ms=min(ks),
-                          plain_ms=min(ps), bound_ms=bound, bound_by=by,
-                          library_ms=None)
-        print(f"[timing] exit_confidence {label} N,d,V={shape}: kernel "
-              f"{ks[0]:.5f}/{ks[1]:.5f} ms, plain {ps[0]:.5f}/{ps[1]:.5f} "
-              f"ms, bound {bound:.6f} ms ({by})")
-        del h, scale, w
+    out = _time_exit_confidence()
     tol = ATTN_TOL[torch.bfloat16]
     for B, S in ((8, 1024), (8, 4096), (1, 1024)):
         g = torch.Generator().manual_seed(200 + S)
@@ -1572,16 +1746,24 @@ def main() -> int:
                 ("shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}
 
+    exit_keys = [label for label, *_ in EXIT_TIMED]
     kernels = [{
         "name": "exit_confidence", "route": "cuda",
         "source": "src/repro_torch/kernels/exit_confidence/exit_confidence.cu",
         "replaces": "src/repro/kernels/exit_confidence/kernel.py:70",
-        "launches": decode["exit_launches"], "max_abs_err": exit_err,
+        "launches": decode["exit_launches"],
+        "max_abs_err": max(exit_err, *(timing[key]["max_abs_err"]
+                                       for key in exit_keys)),
         **numbers("qwen3-4b head bf16"),
         "launches_by_path": {"classifier serve": serve["launches"],
                              "decode serve": decode["exit_launches"]},
         "classifier_path": numbers("path"),
         "qwen3_4b_head_fp32": numbers("qwen3-4b head"),
+        "by_batch_bf16": {key: numbers(key) for key in exit_keys
+                          if key.startswith("qwen3-4b head bf16 N=")},
+        "device_ms": {key: timing[key]["device_ms"] for key in exit_keys},
+        "matmul_ms": {key: timing[key]["matmul_ms"] for key in exit_keys},
+        "sass": sass["exit_confidence"],
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/"
@@ -1630,7 +1812,7 @@ def main() -> int:
             row["device_ms"] = {key: entry[key]["device_ms"] for key in
                                 ("mlstm_chunk", "mlstm_chunk xlstm-1.3b head")}
         if kname == "flash_attention":
-            row["sass"] = sass
+            row["sass"] = sass["flash_attention"]
         kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))

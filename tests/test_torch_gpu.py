@@ -33,9 +33,14 @@ def _chip_smoke():
 
 @pytest.mark.gpu
 def test_exit_confidence_kernel_matches_plain_on_card(cuda_device):
-    """chip_smoke.py's kernel check under pytest: the CUDA kernel against
-    its plain version at the path's shapes, a ragged vocab, the qwen3-4b
-    exit head and exact ties (conf atol 1e-5, max / lse 1e-4, pred exact)."""
+    """chip_smoke.py's kernel check under pytest: the CUDA kernels against
+    their plain version at the path's shapes, a ragged vocab, the qwen3-4b
+    exit head (bf16 also against the hi + lo model), exact ties (also
+    across two blocks' runs) and the edges of each path of ``ops.plan``
+    (one tile and one more column, V % 8 != 0 in bf16, the widest d, a d
+    off the k chunk, N 1-8 and 13), two launches bitwise equal and each row
+    of an N 8 bf16 launch bitwise its launch alone (conf atol 1e-5, max /
+    lse 1e-4, pred exact)."""
     assert _chip_smoke().check_exit_confidence(verbose=False) <= 1e-4
 
 

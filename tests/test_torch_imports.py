@@ -10,8 +10,9 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py", REPO / "tools" / "attention_probe.py",
-       REPO / "tools" / "norm_mlstm_probe.py"]
+    + [REPO / "chip_smoke.py"] \
+    + [REPO / "tools" / f"{name}.py" for name in (
+        "attention_probe", "norm_mlstm_probe", "exit_probe", "probe_common")]
 
 
 def _imported_modules(path):

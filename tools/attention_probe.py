@@ -37,6 +37,7 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO / "src"), str(REPO)]
 
+import probe_common  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -55,17 +56,10 @@ def probe_build():
                 (("flash", pool.submit(fops.load_library)),
                  ("decode", pool.submit(dops.load_library)))}
     for name, log in logs.items():
-        entry = frame = None
+        probe_common.print_build(name, log, lambda entry: (
+            "flash_attention_tc" in entry
+            or "decode_partialItLi128ELi4E" in entry))
         for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "bytes stack frame" in line:
-                frame = line.strip()
-            elif "Used" in line and entry and (
-                    "flash_attention_tc" in entry
-                    or "decode_partialItLi128ELi4E" in entry):
-                print(f"[build] {entry[:70]}: "
-                      f"{line.split(':', 1)[1].strip()}; {frame}")
             if re.search(r"\(C751[234]\)", line):
                 print(f"[build] {line.strip()[:300]}")
     sass = cs._sass_counts(build.library_path(fops.SOURCE))

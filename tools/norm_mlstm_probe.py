@@ -36,18 +36,20 @@ imports torch and the port only.
 """
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
-import pathlib
 import sys
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
+import probe_common
 
 STEPS = ("build", "check", "time", "host", "profile", "sweep")
-DEFAULT_STEPS = STEPS[:3]
+#: the mLSTM kernels' SASS counts: shared (LDS/STS), generic (LD/ST),
+#: global (LDG/STG) loads and stores, fp32 and fp64 fmas, barriers
+SASS_KEYS = ("LDS", "STS", "LD", "ST", "LDG", "STG", "FFMA", "DFMA", "DADD",
+             "BAR", "F2F")
 
 
-def probe_build():
+def probe_build(cs):
+    from repro_torch.kernels import build
     from repro_torch.kernels.mlstm_chunk import ops as mops
     from repro_torch.kernels.rmsnorm import ops as rops
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -55,41 +57,8 @@ def probe_build():
                 (("rmsnorm", pool.submit(rops.load_library)),
                  ("mlstm_chunk", pool.submit(mops.load_library)))}
     for name, log in logs.items():
-        entry = frame = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "bytes stack frame" in line:
-                frame = line.strip()
-            elif "Used" in line and entry:
-                print(f"[build] {name} {entry}: "
-                      f"{line.split(':', 1)[1].strip()}; {frame}")
-                entry = None
-    _sass_by_function(mops)
-
-
-def _sass_by_function(mops):
-    """Instruction counts of each mLSTM kernel's SASS (``cuobjdump
-    -sass``): shared (LDS/STS), generic (LD/ST), global (LDG/STG) loads
-    and stores, fp32 and fp64 fmas, barriers."""
-    import re
-    import subprocess
-
-    from repro_torch.kernels import build
-    tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path(mops.SOURCE))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    keys = ("LDS", "STS", "LD", "ST", "LDG", "STG", "FFMA", "DFMA", "DADD",
-            "BAR", "F2F")
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        ops = [m.group(1).split(".")[0] for m in re.finditer(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
-            part)]
-        counts = {k: ops.count(k) for k in keys if ops.count(k)}
-        print(f"[sass] {name[:60]}: {counts}")
+        probe_common.print_build(name, log)
+    probe_common.print_sass(cs, build.library_path(mops.SOURCE), SASS_KEYS)
 
 
 def _rmsnorm_time(cs, torch):
@@ -149,8 +118,6 @@ def _mlstm_time(cs, torch):
 
 
 def _mlstm_host(cs, torch):
-    import time
-
     from repro_torch.kernels import build
     from repro_torch.kernels.mlstm_chunk import ops
     args = cs._mlstm_inputs(2, 4, 128, 64, torch.float32, 900, state=False)
@@ -169,7 +136,7 @@ def _mlstm_host(cs, torch):
                                    n1, m1)], scratch.data_ptr(), False),
             stream)
 
-    pieces = {
+    probe_common.host_costs("mlstm_chunk", {
         "check": lambda: ops.check(*args, kernel=True),
         "casts": lambda: [
             t if t.dtype is torch.float32 and t.is_contiguous()
@@ -182,18 +149,7 @@ def _mlstm_host(cs, torch):
         "device context": lambda: build.on_device(dev),
         "ctypes launch": launch,
         "wrapper": lambda: ops.mlstm_chunk(*args),
-    }
-    for name, fn in pieces.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(2000):
-            fn()
-            if i % 100 == 99:
-                torch.cuda.synchronize()
-        torch.cuda.synchronize()
-        print(f"[host] mlstm_chunk {name}: "
-              f"{(time.perf_counter() - t0) / 2000 * 1e6:.2f} us a call")
+    })
 
 
 def _profile(cs, torch):
@@ -204,31 +160,13 @@ def _profile(cs, torch):
         g = torch.Generator().manual_seed(700 + N)
         x = cs._randn((N, d), g).to("cuda", dtype)
         scale = cs._randn((d,), g, 0.1).to("cuda", dtype)
-        _kernel_times(torch, f"rmsnorm {N}x{d} {cs._dt(dtype)}",
-                      lambda: rmsnorm(x, scale))
+        probe_common.kernel_times(f"rmsnorm {N}x{d} {cs._dt(dtype)}",
+                                  lambda: rmsnorm(x, scale))
     for shape, dtype, state in (((2, 4, 128, 64), torch.float32, False),
                                 (cs.XLSTM_HEAD, torch.bfloat16, True)):
         args = cs._mlstm_inputs(*shape, dtype, 900 + shape[3], state=state)
-        _kernel_times(torch, f"mlstm_chunk {shape} {cs._dt(dtype)}",
-                      lambda: mlstm_chunk(*args))
-
-
-def _kernel_times(torch, label, fn, n=20):
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    parts = []
-    for ev in prof.key_averages():
-        total = getattr(ev, "device_time_total", 0.0)
-        if ev.count and total:
-            name = ev.key.split("<")[0].split("::")[-1]
-            parts.append(f"{name} {total / ev.count:.2f}")
-    print(f"[profile] {label}: " + ", ".join(parts) + " (us a launch)")
+        probe_common.kernel_times(f"mlstm_chunk {shape} {cs._dt(dtype)}",
+                                  lambda: mlstm_chunk(*args))
 
 
 def _sweep(cs, torch):
@@ -237,48 +175,23 @@ def _sweep(cs, torch):
         for dh in (64, 128, 256, 512, 1024):
             args = cs._mlstm_inputs(1, 4, 128, dh, dtype, 950 + dh,
                                     state=True)
-            _kernel_times(torch, f"B=1 H=4 L=128 dh={dh} {cs._dt(dtype)}",
-                          lambda a=args: mlstm_chunk(*a))
+            probe_common.kernel_times(
+                f"B=1 H=4 L=128 dh={dh} {cs._dt(dtype)}",
+                lambda a=args: mlstm_chunk(*a))
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("steps", nargs="*", help=f"any of {STEPS}")
-    ap.add_argument("--repo", type=pathlib.Path, default=None,
-                    help="time the port of this checkout instead")
-    args = ap.parse_args(argv)
-    steps = args.steps or list(DEFAULT_STEPS)
-    if set(steps) - set(STEPS):
-        ap.error(f"steps are {STEPS}, got {steps}")
-    src = (args.repo.resolve() if args.repo else REPO) / "src"
-    if args.repo and steps != ["time"]:
-        ap.error("--repo times another checkout: the time step only")
-    sys.path[:0] = [str(src), str(REPO)]
+    steps, cs, smi = probe_common.start(__doc__, STEPS, STEPS[:3], argv)
     import torch
-
-    import chip_smoke as cs
-    name, smi = cs.phase_device()
-    print(f"[probe] port from {src}")
     if "build" in steps:
-        probe_build()
+        probe_build(cs)
     if "check" in steps:
         print(f"[check] rmsnorm worst {cs.check_rmsnorm():.3e}")
         print(f"[check] mlstm_chunk worst {cs.check_mlstm_chunk():.3e}")
     if "time" in steps:
-        import subprocess
-        smi = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
-             "--format=csv,noheader", "-lms", "200"],
-            stdout=subprocess.PIPE, text=True)
-        try:
+        with probe_common.sampled_clocks():
             _rmsnorm_time(cs, torch)
             _mlstm_time(cs, torch)
-        finally:
-            smi.terminate()
-            samples = smi.communicate(timeout=30)[0].split("\n")
-        print(f"[time] SM clock, max, power during the timing: "
-              f"{sorted(set(x for x in samples if x))[:6]} ... "
-              f"({len(samples)} samples)")
     if "host" in steps:
         _mlstm_host(cs, torch)
     if "profile" in steps:
