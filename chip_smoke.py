@@ -53,11 +53,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``F.rms_norm``'s), with the launch counts set to 0 before it
               and read after, and each output held against its plain
               version on the same inputs;
-5. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
-              full width (random weights from seed 0), 120 requests from 8
-              clients on the wall clock with two stacked device windows, with
-              a check that every stage dispatch went through the exit kernel;
-6. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
+5. train    — the trainer ``repro_torch.training.multiexit`` on the card:
+              the anytime classifier at full width, 700 steps from seed 0,
+              calibration and the oracle tables, written to build/train;
+              each step timed by CUDA events, the device time of a step by
+              ``torch.profiler``; the checkpoint read back and held leaf for
+              leaf to the trained params; the final stage above 0.35 and
+              above stage 1, correct samples more confident at every stage;
+6. serve    — ``Service`` -> ``device-kernel`` on the anytime classifier at
+              full width with the trained params read back from the
+              checkpoint, 120 requests from 8 clients on the wall clock with
+              two stacked device windows, with a check that every stage
+              dispatch went through the exit kernel; then
+              ``tests/test_system.py``'s scheduling comparison on the
+              trainer's tables through the port's ``simulate`` (printed,
+              not held to a bound);
+7. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
               at full width (bf16, random weights from seed 0, 36 layers in
               3 stages): a pool of 16 sequences warmed by batched decode
               steps, the kernel route against the plain route per stage
@@ -67,12 +78,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               stage dispatch launched the decode kernel once per layer and
               the exit kernel once, and the peak device memory of the 96
               requests;
-7. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
-              speculation, 24 tokens; then its components again at a
+8. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
+              speculation, 24 tokens, and again with ``--ckpt`` of the same
+              params written by the port's checkpoint; then its
+              components again at a
               confidence target that mixes depths, with a check that the
               discarded speculative depths left the committed cache
               unwritten;
-8. report   — one ``{"kernels": [...]}`` line, then the result line.
+9. report   — one ``{"kernels": [...]}`` line, then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1204,18 +1217,164 @@ def phase_kernel_entry() -> dict:
     return out
 
 
-def phase_serve() -> dict:
+TRAIN_STEPS = 700            # the verify recipe's count: 300 is not enough
+TRAIN_OUT = "build/train"    # git-ignored
+TRAIN_PROFILED_STEPS = 20
+
+
+def _train_device_ms(cfg, params, batch) -> tuple:
+    """Device time of one train step: the sum of its kernels' device time
+    over ``TRAIN_PROFILED_STEPS`` steps (``torch.profiler``), a step; also
+    the kernels launched a step and the three kernels that take the most
+    device time.  The steps start from the trained params with a fresh
+    optimizer and return new tensors, so the trained params are left as
+    they are."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import AdamW, make_train_step, warmup_cosine
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 40, TRAIN_STEPS),
+                weight_decay=0.01)
+    step = make_train_step(cfg, opt, exit_weights=(0.2, 0.3, 0.5))
+    p, st = params, opt.init(params)
+    for _ in range(3):
+        p, st, _m = step(p, st, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_PROFILED_STEPS):
+            p, st, _m = step(p, st, batch)
+        torch.cuda.synchronize()
+    events = [(getattr(ev, "device_time_total", 0.0), ev.count, ev.key)
+              for ev in prof.key_averages()]
+    n = TRAIN_PROFILED_STEPS
+    top = [f"{key[:60]} {us / n:.1f} us x{count // n}"
+           for us, count, key in sorted(events, reverse=True)[:3]]
+    return (sum(us for us, _, _ in events) / 1e3 / n,
+            sum(count for _, count, _ in events) / n, top)
+
+
+def phase_train() -> dict:
+    """The trainer ``python -m repro_torch.training.multiexit --steps 700
+    --out build/train`` on the card, each step timed by CUDA events between
+    synchronisations; then the checkpoint read back and held leaf for leaf
+    to the trained params, and the claims of ``tests/test_system.py`` about
+    the model on the trainer's test tables."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import DifficultyDataset, checkpoint, multiexit
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("anytime-classifier")
+    times, losses = [], []
+    make_train_step = multiexit.make_train_step
+
+    def timed_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            start.record()
+            out = step(params, opt_state, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+            losses.append(out[2]["loss"])
+            return out
+        return timed
+
+    # the trainer builds its step through this module attribute: swapping
+    # it for the timed wrapper times every step without a hook in the
+    # trainer itself
+    multiexit.make_train_step = timed_train_step
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = multiexit.main(["--steps", str(TRAIN_STEPS),
+                                  "--out", TRAIN_OUT])
+    finally:
+        multiexit.make_train_step = make_train_step
+    print("\n".join(f"[train] {line}" for line in buf.getvalue().splitlines()
+                    if line.strip() and not line.startswith("  step")))
+    loss = np.array([float(x) for x in losses])
+    for i in list(range(0, TRAIN_STEPS, 100)) + [TRAIN_STEPS - 1]:
+        print(f"[train] step {i:4d} loss {loss[i]:.6f}")
+    steady = np.array(times[100:])
+    step_ms, step_p99 = float(steady.mean()), float(np.percentile(steady, 99))
+    batch = DifficultyDataset(num_classes=cfg.vocab_size, seed=0).sample(
+        128, seed=10_000)
+    device_ms, kernels, top = _train_device_ms(cfg, res.params, {
+        "inputs": batch["inputs"], "labels": batch["labels"]})
+    print(f"[train] step time (CUDA events, steps 100-{TRAIN_STEPS}): mean "
+          f"{step_ms:.4f} ms p99 {step_p99:.4f} ms; device time a step "
+          f"(torch.profiler, {TRAIN_PROFILED_STEPS} steps) {device_ms:.4f} "
+          f"ms in {kernels:.0f} kernels, busy share "
+          f"{device_ms / step_ms:.4f}; most device time: {'; '.join(top)}")
+
+    back, meta = checkpoint.load(f"{TRAIN_OUT}/anytime_classifier.ckpt",
+                                 res.params, cfg=cfg)
+    got, want = (tree_leaves(t, sort_keys=True) for t in (back, res.params))
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    conf, correct = res.confidence, res.correct
+    acc = correct.mean(0)
+    gaps = [float(conf[correct[:, s], s].mean() - conf[~correct[:, s], s]
+                  .mean()) if 0 < correct[:, s].sum() < len(correct) else
+            float("nan") for s in range(cfg.num_stages)]
+    print(f"[train] temperatures {res.temperatures}; stage accuracy "
+          f"{acc.tolist()}; mean confidence {conf.mean(0).tolist()}; "
+          f"confidence gap (correct - wrong) {gaps}")
+    print(f"[train] checkpoint read back: {sum(same)} of {len(same)} leaves "
+          f"equal, meta {meta}")
+    checks = {
+        "loss finite": bool(np.isfinite(loss).all()),
+        "loss falls (last 50 below first 50)":
+            loss[-50:].mean() < loss[:50].mean(),
+        "final-stage accuracy above 0.35": acc[-1] > 0.35,
+        "final stage above stage 1": acc[-1] > acc[0],
+        "correct samples more confident by 0.02 at every stage":
+            all(g > 0.02 for g in gaps),
+        "checkpoint equal leaf for leaf":
+            len(got) == len(want) and all(same),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train phase failed: {failed}")
+    return dict(params=back, confidence=conf, correct=correct,
+                stage_acc=acc.tolist(), step_ms=step_ms, step_p99_ms=step_p99,
+                device_ms=device_ms, kernels_per_step=kernels)
+
+
+def phase_system(conf, correct) -> dict:
+    """``tests/test_system.py``'s scheduling comparison on the card's own
+    tables, through the port's ``simulate``: RTDeepIoT (exp predictor,
+    prior the tables' mean confidence) against EDF, LCF and RR.  The
+    outcome is printed and returned, not held to a bound (ROADMAP Queue C
+    records it)."""
+    from repro_torch.core import (EDF, LCF, RR, RTDeepIoT, Workload,
+                                  make_predictor, simulate)
+    wl = Workload(n_clients=20, d_lo=0.01, d_hi=0.2, n_requests=400)
+    times = (0.007, 0.007, 0.007)
+    accs = {}
+    for name, pol in [
+        ("rtdeepiot", RTDeepIoT(make_predictor("exp",
+                                               prior_curve=conf.mean(0)))),
+        ("edf", EDF()), ("lcf", LCF()), ("rr", RR()),
+    ]:
+        accs[name] = simulate(pol, wl, times, conf, correct).accuracy
+    best = max(accs["edf"], accs["lcf"], accs["rr"])
+    holds = accs["rtdeepiot"] >= best - 1e-9
+    print(f"[system] simulate accuracy on the card's tables {accs}; "
+          f"rtdeepiot at least the best baseline: {holds}")
+    return dict(accuracy=accs, rtdeepiot_at_least_best=holds)
+
+
+def phase_serve(params) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.exit_confidence.ops import exit_confidence
     from repro_torch.launch.kernel import KernelStageFns
-    from repro_torch.models import init_params, stage_forward
+    from repro_torch.models import stage_forward
     from repro_torch.serving import (ServeSpec, Service, closed_loop_stream,
                                      profile_batched_stages,
                                      profile_host_overhead)
     from repro_torch.training import DifficultyDataset
 
     cfg = get_config("anytime-classifier")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     test = DifficultyDataset(num_classes=cfg.vocab_size,
                              seed=0).sample(600, seed=999)
     sample = {"features": test["inputs"]["features"][:1]}
@@ -1283,7 +1442,9 @@ def phase_serve() -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve phase failed: {failed}")
-    return dict(launches=launches, n_dispatches=res.n_dispatches)
+    return dict(launches=launches, n_dispatches=res.n_dispatches,
+                accuracy=res.accuracy, miss_rate=res.miss_rate,
+                mean_depth=res.mean_depth, mean_latency_ms=lat * 1e3)
 
 
 def _qwen3_pool(cfg, params):
@@ -1351,14 +1512,15 @@ def phase_decode_serve() -> dict:
     from repro_torch.serving import (Request, ServeSpec, Service,
                                      profile_host_overhead)
     from repro_torch.serving.batch.batcher import BatchTimeModel
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config("qwen3-4b")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"[decode] qwen3-4b: {n_params} params "
-          f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f}"
+          f"({sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.3f}"
           f" GB {cfg.dtype}), initialised in {time.perf_counter() - t0:.1f} s"
           f" (set-up)")
     layers = [len(st) for st in params["stages"]]
@@ -1544,11 +1706,9 @@ def phase_decode_serve() -> dict:
 def _to_fp32(tree):
     """A copy of a tree of tensors with every floating leaf in fp32 (the
     int32 ``slot_pos`` stays as it is)."""
-    if isinstance(tree, dict):
-        return {k: _to_fp32(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_fp32(v) for v in tree]
-    return tree.float() if tree.is_floating_point() else tree
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
 
 
 def _route_check_fp32(cfg, params, sfns, seqs):
@@ -1603,17 +1763,6 @@ def _route_check_fp32(cfg, params, sfns, seqs):
     torch.cuda.empty_cache()
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def phase_launcher() -> dict:
     """The token-loop launcher with speculation on the card: 24 tokens of
     the reduced qwen3-4b, as ``python -m repro_torch.launch.serve --tokens
@@ -1638,7 +1787,35 @@ def phase_launcher() -> dict:
     if launches == 0 or sum(hist) != 24 or met.n_requests != 24:
         raise AssertionError(f"launcher: {launches} decode-kernel launches, "
                              f"depth histogram {hist}")
-    return dict(launches=launches, depth_hist=hist)
+
+    # --ckpt: the same seed-0 params written by the port's checkpoint.save
+    # and read back by the launcher give the same tokens' depths and
+    # confidences
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint
+    cfg = get_config("qwen3-4b").reduced()
+    path = "build/launcher/qwen3-4b-reduced.ckpt"
+    checkpoint.save(path, init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cuda"), {"seed": 0}, cfg=cfg)
+    decode_attention.launches = 0
+    buf_ckpt = io.StringIO()
+    with contextlib.redirect_stdout(buf_ckpt):
+        serve.main(["--tokens", "24", "--pipeline", "--device", "cuda",
+                    "--ckpt", path])
+    ckpt_launches = decode_attention.launches
+
+    def tokens(out):
+        return [line for line in out.splitlines() if line.startswith("token ")]
+    same = tokens(buf_ckpt.getvalue()) == tokens(text)
+    print(f"[launcher] --ckpt {path}: {len(tokens(buf_ckpt.getvalue()))} "
+          f"tokens, depths and confidences equal to the run without it: "
+          f"{same}; decode-kernel launches {ckpt_launches}")
+    if not same or ckpt_launches == 0:
+        raise AssertionError("launcher --ckpt: the tokens differ from the "
+                             "run on the same params, or no decode-kernel "
+                             "launch")
+    return dict(launches=launches, depth_hist=hist,
+                ckpt_launches=ckpt_launches)
 
 
 def phase_launcher_mixed() -> dict:
@@ -1736,7 +1913,9 @@ def main() -> int:
     new_errs, check_launches = check_new_kernels()
     timing = phase_timing()
     entry = phase_kernel_entry()
-    serve = phase_serve()
+    train = phase_train()
+    serve = phase_serve(train["params"])
+    system = phase_system(train["confidence"], train["correct"])
     decode = phase_decode_serve()
     launcher = phase_launcher()
     mixed = phase_launcher_mixed()
@@ -1773,6 +1952,7 @@ def main() -> int:
         **numbers("decode B=8 S=1024"),
         "launches_by_path": {"decode serve": decode["attn_launches"],
                              "launcher": launcher["launches"],
+                             "launcher --ckpt": launcher["ckpt_launches"],
                              "launcher, mixed depths": mixed["launches"]},
         "s4096": numbers("decode B=8 S=4096"),
         "b1_s1024": numbers("decode B=1 S=1024"),
@@ -1814,6 +1994,12 @@ def main() -> int:
         if kname == "flash_attention":
             row["sass"] = sass["flash_attention"]
         kernels.append(row)
+    print(json.dumps({"train": {k: train[k] for k in (
+        "stage_acc", "step_ms", "step_p99_ms", "device_ms",
+        "kernels_per_step")},
+        "classifier_serve": {k: serve[k] for k in (
+            "accuracy", "miss_rate", "mean_depth", "mean_latency_ms")},
+        "simulate": system}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,10 @@ step from the same cache: the JAX package stores k and v ``(B, S, KV, dh)``
 in its stage structure, the port ``(B, KV, S, dh)`` in a flat list of
 layers per stage.
 
-Reading the msgpack checkpoint files of ``repro.training.checkpoint`` is
-not ported yet (ROADMAP Queue A item 1).
+``to_reference(cfg, params)`` is the inverse of ``from_reference``: the
+JAX package's param tree, its scan groups stacked again, with numpy
+leaves.  ``repro_torch.training.checkpoint`` writes and reads that tree in
+the JAX package's checkpoint format.
 """
 from __future__ import annotations
 
@@ -28,21 +30,7 @@ import torch
 
 from repro_torch.models.common import param_dtype
 from repro_torch.models.model import check_ported, resolve_device, stage_layouts
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _first_leaf(tree):
-    while isinstance(tree, (dict, list, tuple)):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) \
-            else tree[0]
-    return tree
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _stage_layers(stage: dict) -> list:
@@ -51,9 +39,9 @@ def _stage_layers(stage: dict) -> list:
     layers = list(stage["prefix"])
     scan = stage.get("scan")
     if scan is not None:
-        n_periods = np.shape(_first_leaf(scan))[0]
+        n_periods = np.shape(tree_leaves(scan)[0])[0]
         for i in range(n_periods):
-            layers.extend(_map(lambda x, i=i: np.asarray(x)[i], slot)
+            layers.extend(tree_map(lambda x, i=i: np.asarray(x)[i], slot)
                           for slot in scan)
     layers.extend(stage["tail"])
     return layers
@@ -82,7 +70,7 @@ def from_reference(cfg, ref_params, device="cuda"):
     device = resolve_device(device)
     stages = [_stage_layers(sp) for sp in ref_params["stages"]]
     _check_layer_counts(cfg, stages)
-    return _map(_to_tensor(device, param_dtype(cfg)), {
+    return tree_map(_to_tensor(device, param_dtype(cfg)), {
         "embed": dict(ref_params["embed"]),
         "stages": stages,
         "exits": [{"ln": e["ln"]} for e in ref_params["exits"]],
@@ -119,6 +107,58 @@ def _ref_groups(cfg, lay):
     return 0, n_scan, n - n_scan * period
 
 
+def _regroup(cfg, stages, stack):
+    """The JAX package's stage structure from per-stage lists of layers:
+    per stage ``{"prefix": [...], "scan": (slot, ...) or None, "tail":
+    [...]}``, each scan slot's leaves stacked on a leading period axis by
+    ``stack`` (a list of arrays -> one array)."""
+    period = len(cfg.period)
+    out = []
+    for lay, layers in zip(stage_layouts(cfg), stages):
+        n_prefix, n_scan, n_tail = _ref_groups(cfg, lay)
+        scan = None
+        if n_scan:
+            body = layers[n_prefix:n_prefix + n_scan * period]
+            scan = tuple(
+                tree_map(lambda *xs: stack(list(xs)),
+                         *(body[i * period + j] for i in range(n_scan)))
+                for j in range(period))
+        out.append({"prefix": layers[:n_prefix], "scan": scan,
+                    "tail": layers[len(layers) - n_tail:]})
+    return out
+
+
+def reference_tree(cfg, params):
+    """The JAX package's param tree (``repro.models.init_params``) with the
+    port's tensors as leaves, scan groups stacked with ``torch.stack``.  A
+    stage without a scan group has no ``"scan"`` key, as in the JAX
+    package.  Any tree of the params' structure (gradients, moments) works
+    as ``params``."""
+    check_ported(cfg)
+    stages = []
+    for st in _regroup(cfg, params["stages"], torch.stack):
+        if st["scan"] is None:
+            del st["scan"]
+        stages.append(st)
+    return {"embed": dict(params["embed"]), "stages": stages,
+            "exits": [{"ln": e["ln"]} for e in params["exits"]],
+            "exit_shared": {"w_out": params["exit_shared"]["w_out"]}}
+
+
+def as_numpy(t):
+    """A tensor as a numpy array on the host; bf16 as fp32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_reference(cfg, params):
+    """The JAX package's param tree from the port's params (the inverse of
+    :func:`from_reference`), with numpy leaves: fp32 and other numpy
+    dtypes as they are, bf16 as fp32 (exact; cast to the JAX params' dtype
+    before use)."""
+    return tree_map(as_numpy, reference_tree(cfg, params))
+
+
 def cache_to_reference(cfg, cache):
     """The JAX package's decode-cache structure from the port's: per stage
     ``{"prefix", "scan", "tail"}`` with k and v ``(B, S, KV, dh)`` as fp32
@@ -129,18 +169,4 @@ def cache_to_reference(cfg, cache):
                 "v": np.swapaxes(c["v"].float().cpu().numpy(), 1, 2),
                 "slot_pos": c["slot_pos"].cpu().numpy().astype(np.int32)}
 
-    out = []
-    for lay, st in zip(stage_layouts(cfg), cache):
-        layers = [layer(c) for c in st]
-        n_prefix, n_scan, n_tail = _ref_groups(cfg, lay)
-        period = len(cfg.period)
-        scan = None
-        if n_scan:
-            body = layers[n_prefix:n_prefix + n_scan * period]
-            scan = tuple(
-                {k: np.stack([body[i * period + j][k]
-                              for i in range(n_scan)]) for k in body[j]}
-                for j in range(period))
-        out.append({"prefix": layers[:n_prefix], "scan": scan,
-                    "tail": layers[len(layers) - n_tail:]})
-    return out
+    return _regroup(cfg, [[layer(c) for c in st] for st in cache], np.stack)

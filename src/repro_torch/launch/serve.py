@@ -30,7 +30,9 @@ against the registry and prints it as JSON without touching the model.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --tokens 24
 
 It runs on the card (``--device cuda``, the default) unless asked for the
-CPU (``--device cpu``).
+CPU (``--device cpu``).  ``--ckpt PATH`` loads a checkpoint in the JAX
+package's format (:mod:`repro_torch.training.checkpoint`, written by either
+package) over the seed-0 params of the reduced config.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from repro_torch.serving.batch.policy import BatchPolicy
 from repro_torch.serving.registry import (register_executor, register_policy,
                                           register_source)
 from repro_torch.serving.service import ServeSpec, Service
+from repro_torch.training import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +271,11 @@ def main(argv=None):
         print(f"DRY RUN OK: {args.arch} ({n_stages} stages, "
               f"{args.tokens} tokens) resolves through the registry")
         return spec
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: reading the JAX package's msgpack checkpoints is not "
-            "ported to repro_torch yet (ROADMAP Queue A item 1)")
 
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          device=args.device)
+    if args.ckpt:
+        params, _ = checkpoint.load(args.ckpt, params, cfg=cfg)
     B = args.batch
     cache = init_decode_cache(cfg, B, slots=args.tokens + 1,
                               device=args.device)

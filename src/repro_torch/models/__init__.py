@@ -2,7 +2,7 @@ from repro_torch.models.exits import (exit_rows, exit_stats_fused,
                                       exit_stats_unfused)
 from repro_torch.models.model import (FEATURE_DIM, ExitsOut,
                                       concat_decode_caches, decode_step,
-                                      embed_one, init_decode_cache,
+                                      embed_one, forward, init_decode_cache,
                                       init_params, params_device,
                                       slice_decode_cache, stage_decode_step,
                                       stage_forward, stage_layouts,
@@ -10,6 +10,6 @@ from repro_torch.models.model import (FEATURE_DIM, ExitsOut,
 
 __all__ = ["FEATURE_DIM", "ExitsOut", "concat_decode_caches", "decode_step",
            "embed_one", "exit_rows", "exit_stats_fused",
-           "exit_stats_unfused", "init_decode_cache", "init_params",
+           "exit_stats_unfused", "forward", "init_decode_cache", "init_params",
            "params_device", "slice_decode_cache", "stage_decode_step",
            "stage_forward", "stage_layouts", "stage_trunk", "synchronize"]

@@ -13,7 +13,8 @@ Weights keep the JAX layout ``(in, out)``, applied as ``x @ W``.
 Ported so far: dense GQA (with or without qk-norm) + SwiGLU layers with
 the ``features`` modality (the anytime classifier) or the ``text``
 modality (qwen3-4b), over a full sequence (``stage_trunk`` /
-``stage_forward``) or one decode step over a per-stage KV cache
+``stage_forward``, and ``forward``, the training forward of the
+``features`` modality) or one decode step over a per-stage KV cache
 (``stage_decode_step`` / ``decode_step``).  A stage's decode cache is a list
 with one ``{"k", "v", "slot_pos"}`` dict per layer, k and v laid out
 ``(B, KV, S, dh)`` as the decode-attention kernel reads them.  Other block
@@ -23,6 +24,7 @@ Queue A item 12).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -179,15 +181,46 @@ def stage_forward(cfg, params, stage_idx: int, h_or_inputs, *,
     return h, lg, exits.confidence_from_logits(lg, conf_temperature)
 
 
+@dataclasses.dataclass
+class ExitsOut:
+    """Per-stage exit outputs of :func:`forward` and :func:`decode_step`."""
+    logits: list               # per stage, (B, V)
+    confidences: list          # per stage, (B,)
+    aux: Any = None            # forward: the router aux loss (a zero scalar)
+    h_final: Any = None        # forward: the last stage's hidden state
+
+
+def forward(cfg, params, inputs, *, upto_stage=None,
+            conf_temperature: float = 1.0):
+    """Full-sequence training forward through (up to) ``upto_stage``
+    stages: ``repro.models.forward(mode="train")`` for the ``features``
+    modality: :func:`stage_forward` stage by stage, plain differentiable
+    ops, so autograd runs through it; the fused exit kernel is for
+    serving.
+
+    inputs: ``{"features": (B, S, FEATURE_DIM)}`` on the params' device.
+    Returns an :class:`ExitsOut` with each stage's (B, V) logits and (B,)
+    confidence, ``aux`` a zero fp32 scalar (no MoE layers are ported) and
+    ``h_final`` the last stage's (B, S, d) hidden state."""
+    if cfg.modality != "features":
+        raise NotImplementedError(
+            f"training forward of modality {cfg.modality!r} is not ported "
+            "to repro_torch yet (ROADMAP Queue A item 12)")
+    n_stages = len(stage_layouts(cfg)) if upto_stage is None else upto_stage
+    h = inputs
+    logits_list, conf_list = [], []
+    for s in range(n_stages):
+        h, lg, conf = stage_forward(cfg, params, s, h,
+                                    conf_temperature=conf_temperature)
+        logits_list.append(lg)
+        conf_list.append(conf)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return ExitsOut(logits_list, conf_list, aux, h)
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass
-class ExitsOut:
-    """Per-stage exit outputs of :func:`decode_step`."""
-    logits: list               # per stage, (B, V)
-    confidences: list          # per stage, (B,)
 
 
 def _layer_cache_struct(cfg, batch, slots, dtype, device):

@@ -10,7 +10,9 @@
   without speculation, at three confidence targets: the same tokens, the
   same depth per token and the same speculation counts.
 * ``--dry-run`` prints the JAX package's spec JSON; the launcher runs on
-  the CPU when asked; ``--ckpt`` raises ``NotImplementedError``.
+  the CPU when asked; ``--ckpt`` reads a checkpoint (a missing file
+  raises; ``tests/test_torch_checkpoint.py`` holds its tokens to the JAX
+  launcher's).
 """
 import argparse
 import contextlib
@@ -325,9 +327,13 @@ def test_launcher_defaults_to_the_card():
         serve.main(["--tokens", "2"])
 
 
-def test_launcher_ckpt_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        serve.main(["--tokens", "2", "--ckpt", "x.ckpt", "--device", "cpu"])
+def test_launcher_ckpt_is_not_ported(tmp_path):
+    """``--ckpt`` is ported now (the name is this test's history): it reads
+    the file, so a missing one raises ``FileNotFoundError`` rather than
+    serving the seed-0 params."""
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--tokens", "2", "--ckpt", str(tmp_path / "x.ckpt"),
+                    "--device", "cpu"])
 
 
 def test_launcher_components_are_registered():

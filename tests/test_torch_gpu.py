@@ -91,3 +91,34 @@ def test_mlstm_chunk_kernel_matches_plain_on_card(cuda_device):
     at the tolerance times its row's condition number, capped at 16); the
     check raises on any disagreement."""
     assert math.isfinite(_chip_smoke().check_mlstm_chunk(verbose=False))
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of the anytime classifier (seed-0 params, batch 128
+    from the trainer's first batch seed) on the card and on the CPU: loss,
+    grad norm, params and both moments within 1e-5."""
+    _chip_smoke()                # puts the checkout's src/ on the path
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamW, DifficultyDataset,
+                                      make_train_step, warmup_cosine)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("anytime-classifier")
+    b = DifficultyDataset(num_classes=10, seed=0).sample(128, seed=10_000)
+    batch = {"inputs": b["inputs"], "labels": b["labels"]}
+    out = {}
+    for device in ("cpu", cuda_device):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=device)
+        opt = AdamW(learning_rate=warmup_cosine(3e-3, 40, 700),
+                    weight_decay=0.01)
+        step = make_train_step(cfg, opt, exit_weights=(0.2, 0.3, 0.5))
+        params, state, m = step(params, opt.init(params), batch)
+        out[str(device)] = (m, [t.cpu() for tree in (params, state.mu,
+                                                      state.nu)
+                                for t in tree_leaves(tree)])
+    (m_cpu, cpu), (m_gpu, gpu) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) <= 1e-5
+    assert max(float((a - b).abs().max()) for a, b in zip(gpu, cpu)) <= 1e-5

@@ -27,8 +27,10 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_no_jax_or_reference_import(path):
+    """No jax, nothing of the JAX package, and no msgpack (the port carries
+    its own codec, ``repro_torch.training.msgpack_lite``)."""
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -37,7 +39,9 @@ def test_port_imports_without_jax():
             "import repro_torch, repro_torch.launch.kernel, "
             "repro_torch.launch.serve, repro_torch.serving, "
             "repro_torch.interop, repro_torch.kernels.decode_attention, "
-            "repro_torch.configs.qwen3_4b; "
+            "repro_torch.configs.qwen3_4b, repro_torch.training, "
+            "repro_torch.training.checkpoint, repro_torch.training.multiexit; "
+            "assert 'msgpack' not in sys.modules; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
