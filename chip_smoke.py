@@ -68,7 +68,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``tests/test_system.py``'s scheduling comparison on the
               trainer's tables through the port's ``simulate`` (printed,
               not held to a bound);
-7. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
+7. executors — the classifier's plain executors with the same trained
+              params: each ``device-single`` stage (``make_stage_fns``)
+              ``torch.equal`` to the bucket-1 ``device-batched`` stage, the
+              bucket-8 plain body against the fused stage, and
+              ``device-batched`` against ``device-kernel`` on 24 requests
+              on the virtual clock (same responses, conf within 1e-5); then
+              the launcher ``repro_torch.launch.serve_anytime --kernels`` at
+              its defaults on the trained checkpoint, writing to
+              build/serve: RTDeepIoT and EDF on ``device-single``,
+              ``device-batched`` and pipelined ``device-batched``, and
+              RTDeepIoT on ``device-kernel``, 120 requests each, with a
+              check that the kernel leg launched the exit kernel once per
+              dispatch and that ``stage_times.npz`` has the JAX example's
+              keys;
+8. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
               at full width (bf16, random weights from seed 0, 36 layers in
               3 stages): a pool of 16 sequences warmed by batched decode
               steps, the kernel route against the plain route per stage
@@ -78,14 +92,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               stage dispatch launched the decode kernel once per layer and
               the exit kernel once, and the peak device memory of the 96
               requests;
-8. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
+9. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
               speculation, 24 tokens, and again with ``--ckpt`` of the same
               params written by the port's checkpoint; then its
               components again at a
               confidence target that mixes depths, with a check that the
               discarded speculative depths left the committed cache
               unwritten;
-9. report   — one ``{"kernels": [...]}`` line, then the result line.
+10. report  — one ``{"kernels": [...]}`` line, then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1447,6 +1461,174 @@ def phase_serve(params) -> dict:
                 mean_depth=res.mean_depth, mean_latency_ms=lat * 1e3)
 
 
+EXEC_STAGE_TIMES = (0.002, 0.003, 0.004)   # the virtual clock's stage prices
+SERVE_OUT = "build/serve"                 # git-ignored
+
+
+def check_executor_stages(params, verbose: bool = True) -> float:
+    """The plain stage bodies on the card: each ``make_stage_fns`` stage
+    (``device-single``) ``torch.equal`` to ``BatchedStageFns.call`` at bucket
+    1 (``device-batched``) on the same sample: h, logits and conf; and the
+    bucket-8 plain body against the fused ``KernelStageFns`` stage: h and
+    conf within ``CONF_ATOL``, pred the plain logits' argmax.  Returns the
+    largest h or conf error of the second check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.kernel import KernelStageFns
+    from repro_torch.serving import BatchedStageFns, make_stage_fns
+    from repro_torch.training import DifficultyDataset
+
+    cfg = get_config("anytime-classifier")
+    feats = DifficultyDataset(num_classes=cfg.vocab_size, seed=0).sample(
+        8, seed=999)["inputs"]["features"]
+    rows = [{"features": feats[i:i + 1]} for i in range(8)]
+    fns, bfns = make_stage_fns(cfg), BatchedStageFns(cfg, (1, 8))
+    kfns = KernelStageFns(cfg, (8,))
+    h, hb = rows[0], bfns.pad(params, rows[:1], 1)[0]
+    for s in range(cfg.num_stages):
+        out, bout = fns[s](params, h), bfns.call(s, params, hb)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, bout)):
+            raise AssertionError(f"stage {s}: device-single and bucket-1 "
+                                 "device-batched stages differ")
+        h, hb = out[0], bout[0]
+    if verbose:
+        print("[executors] make_stage_fns == BatchedStageFns.call at bucket "
+              "1 (h, logits, conf; torch.equal) at every stage")
+    hp = hk = bfns.pad(params, rows, 8)[0]
+    worst = 0.0
+    for s in range(cfg.num_stages):
+        hp, logits, conf_p = bfns.call(s, params, hp)
+        hk, pred, conf_k = kfns.call(s, params, hk)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(hp).all() and torch.isfinite(conf_p).all()):
+            raise AssertionError(f"stage {s}: non-finite plain output")
+        h_err = float((hk - hp).abs().max())
+        err = float((conf_k - conf_p).abs().max())
+        worst = max(worst, h_err, err)
+        if h_err > CONF_ATOL or err > CONF_ATOL \
+                or not torch.equal(pred.long(), logits.argmax(-1)):
+            raise AssertionError(f"stage {s}: plain bucket-8 body disagrees "
+                                 f"with the fused stage (h err {h_err}, "
+                                 f"conf err {err})")
+        if verbose:
+            print(f"[executors] stage {s} bucket 8 plain vs fused: h err "
+                  f"{h_err:.3e}, conf err {err:.3e}, pred equal")
+    return worst
+
+
+def _executor_parity(params) -> dict:
+    """``device-batched`` against ``device-kernel`` (both at depth 1) on one
+    24-request virtual-clock stream whose requests overlap, so batches form
+    and stages are shed: equal (sample, pred, depth, missed), conf within
+    ``CONF_ATOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeSpec, Service, closed_loop_stream
+    from repro_torch.training import DifficultyDataset
+
+    cfg = get_config("anytime-classifier")
+    test = DifficultyDataset(num_classes=cfg.vocab_size, seed=0).sample(
+        30, seed=9)
+    runs = {}
+    for executor in ("device-batched", "device-kernel"):
+        spec = ServeSpec(
+            policy="rtdeepiot",
+            policy_args={"predictor": "exp", "prior_curve": [0.5, 0.7, 0.85]},
+            executor=executor, clock="virtual", source="stream",
+            batching={"buckets": [1, 2, 4],
+                      "stage_times": list(EXEC_STAGE_TIMES),
+                      "marginal": 0.25})
+        svc = Service.from_spec(spec, cfg=cfg, params=params)
+        res = svc.run(closed_loop_stream(
+            test["inputs"], test["labels"], n_clients=4, d_lo=0.006,
+            d_hi=0.02, n_requests=24, seed=1, spacing=0.001))
+        runs[executor] = (svc.responses, res.n_dispatches,
+                          svc.executor.cache_stats())
+    (plain, n_plain, c_plain), (fused, n_fused, c_fused) = runs.values()
+    for i, (a, b) in enumerate(zip(plain, fused)):
+        if (a.sample, a.prediction, a.depth, a.missed) != \
+                (b.sample, b.prediction, b.depth, b.missed):
+            raise AssertionError(
+                f"response {i} differs: device-batched {a} against "
+                f"device-kernel {b}, conf gap "
+                f"{abs(a.confidence - b.confidence):.3e}")
+    gap = max(abs(a.confidence - b.confidence) for a, b in zip(plain, fused))
+    checks = {"24 responses each": len(plain) == len(fused) == 24,
+              "conf within CONF_ATOL": gap <= CONF_ATOL,
+              "same dispatches": n_plain == n_fused > 0,
+              "same cache stats": c_plain == c_fused,
+              "batches formed": c_plain["peak"] > 1 and n_plain < 3 * 24}
+    depths = [r.depth for r in plain]
+    print(f"[executors] device-batched vs device-kernel on 24 requests: "
+          f"responses equal, conf gap {gap:.3e}, dispatches {n_plain}, "
+          f"depths {np.bincount(depths, minlength=4).tolist()}, cache "
+          f"{c_plain}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"executor parity failed: {failed}")
+    return dict(conf_gap=gap, n_dispatches=n_plain)
+
+
+def phase_executors(params, ckpt) -> dict:
+    """The classifier's plain executors on the card: the stage and service
+    parity checks, then the launcher ``repro_torch.launch.serve_anytime
+    --kernels`` at its defaults on the checkpoint ``ckpt``, writing to
+    ``build/serve``, with the exit-kernel count set to 0 just before it and
+    read just after."""
+    from repro_torch.kernels.exit_confidence.ops import exit_confidence
+    from repro_torch.launch import serve_anytime
+
+    stage_err = check_executor_stages(params)
+    parity = _executor_parity(params)
+
+    buf = io.StringIO()
+    exit_confidence.launches = 0
+    with contextlib.redirect_stdout(buf):
+        out = serve_anytime.main(["--kernels", "--ckpt", str(ckpt),
+                                  "--out", SERVE_OUT])
+    launches = exit_confidence.launches
+    print("\n".join(f"[executors] {line}"
+                    for line in buf.getvalue().splitlines() if line.strip()))
+    print(f"[executors] single-stage WCETs (ms) "
+          f"{np.array2string(out['wcet'] * 1e3, precision=4)}; host "
+          f"overhead {out['host_overhead'] * 1e6:.1f} us; batched WCETs (ms) "
+          f"[stage x bucket {list(out['buckets'])}] "
+          f"{np.array2string(out['batched_wcet'] * 1e3, precision=4)}")
+    for name, leg in out["legs"].items():
+        print(f"[executors] {name}: accuracy {leg['acc']:.4f} miss rate "
+              f"{leg['miss']:.4f} mean depth {leg['depth']:.4f} mean latency "
+              f"{leg['latency_ms']:.4f} ms dispatches {leg['n_dispatches']} "
+              f"device_time_stats {json.dumps(leg['device_time_stats'])}")
+    kernel = out["legs"]["kernel-rtdeepiot"]
+    with np.load(f"{SERVE_OUT}/stage_times.npz") as z:
+        npz = {k: z[k].shape for k in z.files}
+    checks = {
+        "120 responses in every leg":
+            all(leg["n"] == 120 for leg in out["legs"].values()),
+        "seven legs": len(out["legs"]) == 7,
+        "hidden-state cache empty after every leg":
+            all(leg["cache"]["live"] == 0 for leg in out["legs"].values()),
+        "kernel leg: exit launches = dispatches":
+            kernel["n_dispatches"] > 0
+            and kernel["exit_launches"] == kernel["n_dispatches"],
+        "stage_times.npz has the JAX keys and shapes":
+            npz == {"wcet": (3,), "samples": (3, 60), "host_overhead": ()},
+    }
+    print(f"[executors] exit-kernel launches in the launcher {launches} "
+          f"(kernel leg {kernel['exit_launches']} = its "
+          f"{kernel['n_dispatches']} dispatches, the rest its warm-up); "
+          f"stage_times.npz {npz}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"executors phase failed: {failed}")
+    return dict(launches=launches, stage_err=stage_err, **parity,
+                wcet_ms=(out["wcet"] * 1e3).tolist(),
+                host_overhead_us=out["host_overhead"] * 1e6,
+                batched_wcet_ms=(out["batched_wcet"] * 1e3).tolist(),
+                legs={name: {k: leg[k] for k in (
+                    "acc", "miss", "depth", "latency_ms", "n_dispatches")}
+                      for name, leg in out["legs"].items()})
+
+
 def _qwen3_pool(cfg, params):
     """16 sequences warmed by batched decode steps: eight of lengths in
     [32, 240] in 256-slot caches, eight in [300, 1000] in 1024-slot caches.
@@ -1916,6 +2098,8 @@ def main() -> int:
     train = phase_train()
     serve = phase_serve(train["params"])
     system = phase_system(train["confidence"], train["correct"])
+    executors = phase_executors(train["params"],
+                                f"{TRAIN_OUT}/anytime_classifier.ckpt")
     decode = phase_decode_serve()
     launcher = phase_launcher()
     mixed = phase_launcher_mixed()
@@ -1935,6 +2119,8 @@ def main() -> int:
                                        for key in exit_keys)),
         **numbers("qwen3-4b head bf16"),
         "launches_by_path": {"classifier serve": serve["launches"],
+                             "serve_anytime --kernels":
+                                 executors["launches"],
                              "decode serve": decode["exit_launches"]},
         "classifier_path": numbers("path"),
         "qwen3_4b_head_fp32": numbers("qwen3-4b head"),
@@ -1999,7 +2185,10 @@ def main() -> int:
         "kernels_per_step")},
         "classifier_serve": {k: serve[k] for k in (
             "accuracy", "miss_rate", "mean_depth", "mean_latency_ms")},
-        "simulate": system}))
+        "simulate": system,
+        "executors": {k: executors[k] for k in (
+            "stage_err", "conf_gap", "wcet_ms", "host_overhead_us",
+            "batched_wcet_ms", "legs")}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,20 @@
 
 New code talks to :class:`~repro_torch.serving.service.Service` built from a
 declarative :class:`~repro_torch.serving.service.ServeSpec` (components
-named by registry key — see :mod:`repro_torch.serving.registry`).
+named by registry key — see :mod:`repro_torch.serving.registry`); the four
+legacy faces (``simulate``, ``simulate_batched``, ``ServingEngine``,
+``BatchedServingEngine``) are deprecated thin wrappers over it.
 """
-from repro_torch.serving.engine import (Request, Response, closed_loop_stream,
-                                        profile_host_overhead)
+from repro_torch.serving.engine import (Request, Response, ServingEngine,
+                                        closed_loop_stream, make_stage_fns,
+                                        profile_host_overhead, profile_stages)
 from repro_torch.serving.batch import (AdmissionController, BatchedPolicy,
-                                       BatchedStageFns, BatchPolicy,
-                                       BatchTimeModel, LengthBucketTimeModel,
-                                       StageBatcher, as_batch_policy,
-                                       pad_batch, profile_batched_stages)
+                                       BatchedServingEngine, BatchedStageFns,
+                                       BatchPolicy, BatchTimeModel,
+                                       LengthBucketTimeModel, StageBatcher,
+                                       as_batch_policy, pad_batch,
+                                       profile_batched_stages,
+                                       simulate_batched)
 from repro_torch.serving.registry import (available, register_clock,
                                           register_executor, register_policy,
                                           register_source)
@@ -22,12 +27,12 @@ from repro_torch.serving.service import (ResponseHandle, ServeSpec, Service,
                                          ServiceMetrics, ServiceResponse,
                                          SLOClass, StageExit)
 
-__all__ = ["Request", "Response", "closed_loop_stream",
-           "profile_host_overhead",
-           "AdmissionController", "BatchedPolicy", "BatchedStageFns",
-           "BatchPolicy", "BatchTimeModel", "LengthBucketTimeModel",
-           "StageBatcher", "as_batch_policy", "pad_batch",
-           "profile_batched_stages",
+__all__ = ["Request", "Response", "ServingEngine", "closed_loop_stream",
+           "make_stage_fns", "profile_host_overhead", "profile_stages",
+           "AdmissionController", "BatchedPolicy", "BatchedServingEngine",
+           "BatchedStageFns", "BatchPolicy", "BatchTimeModel",
+           "LengthBucketTimeModel", "StageBatcher", "as_batch_policy",
+           "pad_batch", "profile_batched_stages", "simulate_batched",
            "available", "register_clock", "register_executor",
            "register_policy", "register_source",
            "ClosedLoopSource", "EngineCore", "OracleExecutor", "StreamSource",

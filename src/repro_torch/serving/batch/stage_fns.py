@@ -22,9 +22,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models import params_device, synchronize
+from repro_torch.models import params_device, stage_forward, synchronize
 from repro_torch.serving.batch.batcher import (DEFAULT_BUCKETS, BatchTimeModel,
                                                bucket_for)
+from repro_torch.tree import tree_map
 
 
 class _Slot:
@@ -121,14 +122,20 @@ def pad_batch(rows: list, bucket: int, *, staging: StagingBuffers = None,
     return staging.stage(rows, bucket, torch.device(device))
 
 
+def split_rows(tree, n: int):
+    """Undo pad_batch: the first ``n`` rows as single-sample trees (views
+    of a tensor, slices of each entry of a dict)."""
+    return [tree_map(lambda x: x[i:i + 1], tree) for i in range(n)]
+
+
 class BatchedStageFns:
     """Per-stage batched stage bodies with bucket discipline.
 
     ``call(stage, params, h)`` runs one stage on an already padded batch
-    and records the (stage, batch) shape as warm.  Subclasses supply
-    ``stage_body``: the one ported so far is ``KernelStageFns``
-    (:mod:`repro_torch.launch.kernel`); the plain ``stage_forward`` bodies
-    of ``device-batched`` are not ported yet (ROADMAP Queue A item 5)."""
+    and records the (stage, batch) shape as warm.  ``stage_body`` is the
+    plain :func:`repro_torch.models.stage_forward`, returning ``(h, logits,
+    conf)`` (``device-batched``); ``KernelStageFns``
+    (:mod:`repro_torch.launch.kernel`) replaces it with the fused exit."""
 
     def __init__(self, cfg, buckets=DEFAULT_BUCKETS):
         self.cfg = cfg
@@ -137,9 +144,7 @@ class BatchedStageFns:
         self.warm: set = set()           # (stage, batch) shapes already run
 
     def stage_body(self, stage: int, params, h):
-        raise NotImplementedError(
-            "plain stage_forward stage bodies (device-batched) are not "
-            "ported to repro_torch yet (ROADMAP Queue A item 5)")
+        return stage_forward(self.cfg, params, stage, h)
 
     def call(self, stage: int, params, h):
         b = (h["features"] if isinstance(h, dict) else h).shape[0]

@@ -1,12 +1,10 @@
 """One-shot deprecation warnings for the legacy serving entry points
 (``repro.serving.deprecation``).
 
-Each legacy face warns exactly once per process, pointing at the
-``ServeSpec``/``Service`` front door, then stays silent — the shims are
-called in tight loops by old benchmarks and tests.  Of the JAX package's
-four faces the port has ``simulate`` so far; ``simulate_batched``,
-``ServingEngine.run`` and ``BatchedServingEngine.run`` are ROADMAP Queue A
-items 4 and 5.
+Each legacy face (``simulate``, ``simulate_batched``, ``ServingEngine.run``,
+``BatchedServingEngine.run``) warns exactly once per process, pointing at
+the ``ServeSpec``/``Service`` front door, then stays silent — the shims are
+called in tight loops by old benchmarks and tests.
 """
 from __future__ import annotations
 

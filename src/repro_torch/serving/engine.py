@@ -1,4 +1,12 @@
-"""Request/response records and stream helpers (``repro.serving.engine``).
+"""RTDeepIoT serving engine (paper Fig. 2) — user-space, wall-clock
+(``repro.serving.engine``).
+
+The engine owns:
+  * per-stage functions (:func:`repro_torch.models.stage_forward`, eager)
+    — the non-preemptive dispatch units (:func:`make_stage_fns`);
+  * profiled per-stage WCETs (99th percentile, paper §IV protocol;
+    :func:`profile_stages`);
+  * a scheduling Policy (RTDeepIoT or a baseline).
 
 Requests (input dict + relative deadline) enter a ``Service``; the engine
 dispatches one stage at a time on the device, returns each stage's
@@ -10,9 +18,10 @@ Deadline adjustment (§II-B): the caller-visible deadline is reduced by the
 profiled host/dispatch overhead (:func:`profile_host_overhead`) and the
 non-preemptible region before it reaches the scheduler.
 
-The legacy ``ServingEngine``, ``make_stage_fns`` and ``profile_stages`` of
-the JAX package wait for the ``device-single`` executor (ROADMAP Queue A
-item 5).
+``ServingEngine.run`` is a deprecated wrapper over the public serving
+facade (:mod:`repro_torch.serving.service`): a ``ServeSpec`` on the
+``device-single`` executor / wall clock / stream source, dispatching
+singleton batches (``batching={"mode": "none"}``).
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.model import resolve_device, synchronize
+from repro_torch.models.model import (params_device, resolve_device,
+                                     stage_forward, synchronize)
 
 
 @dataclasses.dataclass
@@ -51,6 +61,51 @@ class Response:
     deadline: float
 
 
+def make_stage_fns(cfg):
+    """Per-stage functions: stage 0 embeds raw inputs, later stages consume
+    hidden states.  Returns a list of ``fn(params, x) -> (h, logits,
+    conf)``, each running eagerly on the params' device; a stage-0 input
+    dict of host arrays is copied there first."""
+    def make(s):
+        def fn(params, h):
+            if isinstance(h, dict):
+                device = params_device(params)
+                h = {k: torch.as_tensor(v, device=device)
+                     for k, v in h.items()}
+            return stage_forward(cfg, params, s, h)
+        return fn
+    return [make(s) for s in range(cfg.num_stages)]
+
+
+def profile_stages(cfg, params, stage_fns, sample_inputs, *,
+                   n_runs: int = 100, percentile: float = 99.0, sync=True):
+    """Per-stage WCET = ``percentile`` of ``n_runs`` timed executions
+    (paper: 99% CI upper bound over profiling runs on training data).
+
+    Each sample is a host clock around one stage that ends in a device
+    synchronize.  Also measures the host dispatch overhead on the params'
+    device (:func:`profile_host_overhead`) used for the §II-B deadline
+    adjustment.  Returns ``(wcet, times, host_overhead)``; pass the
+    overhead straight into ``ServingEngine(host_overhead=...)``.  ``sync``
+    is accepted and ignored, as in the JAX package."""
+    device = params_device(params)
+    times = np.zeros((cfg.num_stages, n_runs))
+    h = sample_inputs
+    for s, fn in enumerate(stage_fns):
+        out = fn(params, h)                        # first run of the stage
+        synchronize(device)
+        for i in range(n_runs):
+            t0 = time.perf_counter()
+            out = fn(params, h)
+            synchronize(device)
+            times[s, i] = time.perf_counter() - t0
+        h = out[0]
+    wcet = np.percentile(times, percentile, axis=1)
+    host_overhead = profile_host_overhead(device=device, n_runs=n_runs,
+                                          percentile=percentile)
+    return wcet, times, host_overhead
+
+
 def profile_host_overhead(*, device="cuda", n_runs: int = 100,
                           percentile: float = 99.0) -> float:
     """Host dispatch overhead: round trip of a trivial op on ``device``
@@ -73,6 +128,41 @@ def profile_host_overhead(*, device="cuda", n_runs: int = 100,
         round_trip()
         samples[i] = time.perf_counter() - t0
     return float(np.percentile(samples, percentile))
+
+
+class ServingEngine:
+    def __init__(self, cfg, params, policy, *, stage_wcet,
+                 host_overhead: float = 0.0, stage_fns=None):
+        self.cfg = cfg
+        self.params = params
+        self.policy = policy
+        self.stage_fns = stage_fns or make_stage_fns(cfg)
+        self.stage_wcet = tuple(float(x) for x in stage_wcet)
+        self.host_overhead = host_overhead
+        self.responses: list = []
+
+    def run(self, request_stream):
+        """request_stream: iterable of (offset_seconds, Request), offsets
+        non-decreasing relative to engine start."""
+        from repro_torch.serving.deprecation import deprecate_once
+        from repro_torch.serving.service import ServeSpec, Service
+
+        deprecate_once(
+            "repro_torch.serving.ServingEngine.run",
+            "ServingEngine is deprecated: build a ServeSpec(executor="
+            "'device-single', clock='wall', source='stream') and run it "
+            "through repro_torch.serving.Service instead")
+        spec = ServeSpec(
+            executor="device-single", clock="wall", source="stream",
+            batching={"mode": "none",
+                      "stage_times": [float(x) for x in self.stage_wcet]},
+            host_overhead=self.host_overhead)
+        svc = Service.from_spec(spec, policy=self.policy, cfg=self.cfg,
+                                params=self.params,
+                                stage_fns=self.stage_fns)
+        svc.run(request_stream)
+        self.responses.extend(svc.responses)
+        return self.responses
 
 
 def closed_loop_stream(dataset_inputs, labels, *, n_clients, d_lo, d_hi,

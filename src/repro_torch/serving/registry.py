@@ -31,7 +31,11 @@ Built-in keys (registered below):
 policy    ``rtdeepiot`` (predictor/prior_curve/delta/oracle via args),
           ``rtdeepiot-weighted`` (same + ``Task.weight``-aware dispatch
           and batch seating), ``edf``, ``lcf``, ``rr``
-executor  ``oracle`` (conf tables + BatchTimeModel)
+executor  ``oracle`` (conf tables + BatchTimeModel), ``device-single``
+          (one request's stage at a time, ``make_stage_fns``),
+          ``device-batched`` (padded, bucketed micro-batches,
+          ``BatchedStageFns``); both run ``stage_forward`` on the params'
+          device
 clock     ``virtual`` (discrete event), ``wall`` (real time)
 source    ``closed-loop`` (§IV K-client workload), ``stream``
           ((offset, Request) list), ``live`` (``Service.submit`` queue)
@@ -42,8 +46,9 @@ source    ``closed-loop`` (§IV K-client workload), ``stream``
 runs attention through the decode-attention CUDA kernel) and
 ``repro_torch.launch.serve`` registers the token-loop launcher's policy
 ``conf-target``, executor ``decode`` and source ``token-loop``, from
-outside this module, as ``repro.launch.serve`` does in the JAX package.  Keys of the JAX package that the port has not taken up
-yet resolve to ``NotImplementedError`` naming their ROADMAP queue item
+outside this module, as ``repro.launch.serve`` does in the JAX package.
+Keys of the JAX package that the port has not taken up yet resolve to
+``NotImplementedError`` naming their ROADMAP queue item
 (:data:`NOT_PORTED`).
 
 Example — a custom policy, end to end:
@@ -78,8 +83,6 @@ _REGISTRY: dict = {kind: {} for kind in KINDS}
 
 #: registry keys of the JAX package not ported yet -> their ROADMAP item
 NOT_PORTED = {
-    ("executor", "device-single"): "Queue A item 5",
-    ("executor", "device-batched"): "Queue A item 5",
     ("executor", "device-sharded"): "Queue A item 10",
     ("executor", "zoo-oracle"): "Queue A item 9",
     ("executor", "zoo-device"): "Queue A item 9",
@@ -232,6 +235,43 @@ def _make_oracle(args, ctx):
     return OracleExecutor(
         ctx.time_model, ctx.resources["conf_table"],
         max_inflight=max(1, int(ctx.spec.pipeline_depth) - 1))
+
+
+@register_executor("device-single")
+def _make_device_single(args, ctx):
+    """Per-stage fns, singleton dispatch (the legacy ServingEngine device).
+    resources: cfg, params (their device is where the stages run),
+    optionally stage_fns (fn list)."""
+    from repro_torch.models import params_device, synchronize
+    from repro_torch.serving.engine import make_stage_fns
+    from repro_torch.serving.runtime.device import (DeviceExecutor,
+                                                    SingleStageFns)
+    cfg, params = ctx.resources["cfg"], ctx.resources["params"]
+    fns = ctx.resources.get("stage_fns") or make_stage_fns(cfg)
+    ex = DeviceExecutor(SingleStageFns(fns), params, ctx.time_model)
+
+    def warmup(sample_input):
+        h = sample_input
+        for fn in fns:
+            h = fn(params, h)[0]
+        synchronize(params_device(params))
+    ex.warmup = warmup
+    return ex
+
+
+@register_executor("device-batched")
+def _make_device_batched(args, ctx):
+    """Bucketed batched stage fns (the legacy BatchedServingEngine device).
+    resources: cfg, params (their device is where the stages run),
+    optionally stage_fns (BatchedStageFns)."""
+    from repro_torch.serving.batch.stage_fns import BatchedStageFns
+    from repro_torch.serving.runtime.device import DeviceExecutor
+    cfg, params = ctx.resources["cfg"], ctx.resources["params"]
+    sfns = ctx.resources.get("stage_fns") or \
+        BatchedStageFns(cfg, ctx.time_model.buckets)
+    ex = DeviceExecutor(sfns, params, ctx.time_model)
+    ex.warmup = lambda sample_input: sfns.warmup(params, sample_input)
+    return ex
 
 
 # ---------------------------------------------------------------------------

@@ -24,14 +24,17 @@ device, never copied to the host between stages) and **evicted on
 retire** (the recorder pops it via ``pop_state``).  ``cache_stats()``
 reports live/peak/evicted counts.
 
-Subclasses supply the window's payload: ``_dispatch_stage(stage, tasks)``
+The window's payload has three seams: ``_dispatch_stage(stage, tasks)``
 launches the batched stage, ``_finalize(payload)`` brings what the host
 needs back once the window completes, and ``commit(task, k)`` reads row
-``k`` of it.  The one subclass ported so far is ``KernelDeviceExecutor``
+``k`` of it.  This class's own seams serve ``device-single`` (over
+:class:`SingleStageFns`) and ``device-batched`` (over
+:class:`~repro_torch.serving.batch.stage_fns.BatchedStageFns`): the stage
+returns ``(h, logits, conf)``, logits and conf reach the host in one copy
+per window, and ``commit`` takes the prediction as numpy's argmax of the
+host logits row, as the JAX package does.  ``KernelDeviceExecutor``
 (:mod:`repro_torch.launch.kernel`: fused exit kernel, classifier and decode
-modes); the logits-returning
-``device-single`` / ``device-batched`` executors are not ported yet
-(ROADMAP Queue A item 5).
+modes) overrides all three.
 
 Telemetry: per-stage host seconds (launch + commit work, on
 ``perf_counter``) vs device seconds (time the host spent *waiting* on the
@@ -44,9 +47,22 @@ import collections
 import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.models import params_device
+
+
+class SingleStageFns:
+    """Adapt the unbatched engine's per-stage ``fn(params, h)`` list to the
+    batched ``run(stage, params, rows)`` surface (batches of exactly 1)."""
+
+    def __init__(self, fns):
+        self.fns = fns
+
+    def run(self, stage: int, params, rows):
+        h, logits, conf = self.fns[stage](params, rows[0])
+        return h, logits, conf, np.ones(1, bool)
 
 
 class DeviceExecutor:
@@ -102,6 +118,39 @@ class DeviceExecutor:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return event
+
+    # -- stage dispatch (subclass seam) --------------------------------
+    def _dispatch_stage(self, stage: int, tasks: list):
+        """Launch the batched stage; the payload is ``(h, logits, conf)``,
+        still on the device."""
+        rows = [self.states[t.tid][1] for t in tasks]
+        h_out, logits, conf, _mask = self.stage_fns.run(stage, self.params,
+                                                        rows)
+        return h_out, logits, conf
+
+    def _finalize(self, payload):
+        """Logits and conf of every row in one copy to the host (float32,
+        exact for bf16 logits)."""
+        h_out, logits, conf = payload
+        b = logits.shape[0]
+        host = torch.cat((logits.reshape(b, -1).float(),
+                          conf.reshape(b, -1).float()), 1).cpu().numpy()
+        n = host.shape[1] - conf[0].numel()
+        return (h_out, host[:, :n].reshape(tuple(logits.shape)),
+                host[:, n:].reshape(tuple(conf.shape)))
+
+    def commit(self, task, k: int) -> float:
+        stage, (h_out, logits, conf) = self._done
+        w0 = time.perf_counter()
+        c = float(np.max(conf[k]))
+        lg = logits[k]
+        pred = int(np.argmax(lg[0], -1)) if lg.ndim >= 2 \
+            else int(np.argmax(lg))
+        st = self.states[task.tid]
+        st[1] = h_out[k:k + 1]
+        st[2] = (pred, c)
+        self.stage_host_time[stage] += time.perf_counter() - w0
+        return c
 
     # -- Executor contract ---------------------------------------------
     @property

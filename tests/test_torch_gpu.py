@@ -122,3 +122,18 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for key in ("loss", "grad_norm"):
         assert abs(float(m_gpu[key]) - float(m_cpu[key])) <= 1e-5
     assert max(float((a - b).abs().max()) for a, b in zip(gpu, cpu)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_plain_executor_stages_match_on_card(cuda_device):
+    """chip_smoke.py's executor-stage check under pytest, on seed-0
+    params: each ``device-single`` stage ``torch.equal`` to the bucket-1
+    ``device-batched`` stage (h, logits, conf), and the bucket-8 plain body
+    against the fused exit stage (h and conf within 1e-5, pred exact)."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    params = init_params(get_config("anytime-classifier"),
+                         torch.Generator().manual_seed(0),
+                         device=cuda_device)
+    assert chip_smoke.check_executor_stages(params, verbose=False) <= 1e-5

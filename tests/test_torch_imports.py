@@ -40,7 +40,10 @@ def test_port_imports_without_jax():
             "repro_torch.launch.serve, repro_torch.serving, "
             "repro_torch.interop, repro_torch.kernels.decode_attention, "
             "repro_torch.configs.qwen3_4b, repro_torch.training, "
-            "repro_torch.training.checkpoint, repro_torch.training.multiexit; "
+            "repro_torch.training.checkpoint, repro_torch.training.multiexit, "
+            "repro_torch.serving.batch.engine, "
+            "repro_torch.serving.batch.simulator, "
+            "repro_torch.launch.serve_anytime; "
             "assert 'msgpack' not in sys.modules; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")

@@ -4,8 +4,10 @@ The ``device-kernel`` executor serves the anytime classifier on bridged
 weights over the same request stream on the virtual clock, at
 ``pipeline_depth`` 1 and 3: each response's (sample, prediction, depth,
 missed) must be equal and its confidence within rtol 1e-5.  The numpy
-scheduling path (oracle executor) must agree bit for bit.  What the port
-has not taken up yet must raise ``NotImplementedError``.  Live mode
+scheduling path (oracle executor) must agree bit for bit for every
+built-in policy.  What the port has not taken up yet must raise
+``NotImplementedError``; the plain device executors must validate
+(their parity is ``tests/test_torch_executors.py``).  Live mode
 (``Service.submit`` / ``drain``) is held to the JAX package too: buffered
 on the virtual clock with an unbounded and a bounded intake (reject and
 shed-optional overflow), and on the wall clock through the background
@@ -28,8 +30,9 @@ from repro.serving import closed_loop_stream as jax_closed_loop_stream
 from repro.training import DifficultyDataset as JaxDifficultyDataset
 from repro_torch.configs import get_config
 from repro_torch.interop import from_reference
-from repro_torch.serving import (Request, ServeSpec, Service,
+from repro_torch.serving import (Request, ServeSpec, Service, available,
                                  closed_loop_stream)
+from repro_torch.serving.registry import NOT_PORTED
 from repro_torch.training import DifficultyDataset
 
 STAGE_TIMES = (0.002, 0.003, 0.004)
@@ -90,7 +93,8 @@ def test_device_kernel_service_matches_jax(models, depth):
     assert res.n_dispatches == ref_res.n_dispatches > 0
 
 
-@pytest.mark.parametrize("policy", ("rtdeepiot", "edf"))
+@pytest.mark.parametrize("policy", ("rtdeepiot", "edf", "lcf", "rr",
+                                    "rtdeepiot-weighted"))
 def test_oracle_service_bit_for_bit(policy):
     """The numpy scheduling path: closed-loop clients on the oracle
     executor, same tables and seeds, every result field equal."""
@@ -98,8 +102,8 @@ def test_oracle_service_bit_for_bit(policy):
     conf = np.sort(rng.uniform(0.3, 1.0, (60, 3)), axis=1)
     correct = rng.uniform(size=(60, 3)) < conf
     kw = dict(policy=policy,
-              policy_args={"predictor": "exp"} if policy == "rtdeepiot"
-              else {},
+              policy_args={"predictor": "exp"}
+              if policy.startswith("rtdeepiot") else {},
               batching={"buckets": [1, 2, 4], "stage_times": [0.01, 0.02,
                                                               0.03],
                         "marginal": 0.25},
@@ -220,7 +224,6 @@ def test_live_wall_clock_service_matches_jax():
     ("admission", {"mode": "reject",
                    "forecast": {"process": {"kind": "poisson"}}}),
     ("source", "traffic"), ("source", "replay"), ("source", "frontdoor"),
-    ("executor", "device-single"), ("executor", "device-batched"),
     ("executor", "device-sharded"), ("executor", "zoo-oracle"),
     ("source", "durable"),
 ])
@@ -229,6 +232,16 @@ def test_unported_spec_raises(field, value):
     spec = dataclasses.replace(spec, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         spec.validate()
+
+
+@pytest.mark.parametrize("executor", ("device-single", "device-batched"))
+def test_ported_executor_spec_validates(executor):
+    """The plain device executors resolve in the port's registry."""
+    spec = dataclasses.replace(_stream_spec(ServeSpec, "device-kernel", {}),
+                               executor=executor)
+    assert spec.validate() is spec
+    assert executor in available("executor")
+    assert ("executor", executor) not in NOT_PORTED
 
 
 @pytest.mark.parametrize("resource", ("zoo", "zoo_tables", "on_metrics",
