@@ -82,7 +82,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               check that the kernel leg launched the exit kernel once per
               dispatch and that ``stage_times.npz`` has the JAX example's
               keys;
-8. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
+8. traffic  — the launcher ``repro_torch.launch.traffic_replay --executor
+              device-kernel`` on the trained checkpoint, on the wall clock:
+              the sustained full-depth rate (EDF on a saturating stream),
+              then ``steady`` (0.6x) and ``2x-overload`` (2.0x) of it on
+              EDF, RTDeepIoT and RTDeepIoT behind reject and depth-cap
+              admission, 300 requests each (miss rate, admitted miss rate,
+              rejected, accuracy, depth, latency, per class, peak queue
+              depth from the streamed snapshots), the 2x RTDeepIoT-reject
+              leg traced (spans, time splits, device windows, exports read
+              back, Chrome schema) and replayed from its recorded trace
+              (arrival order); the exit kernel launched once per dispatch
+              in every run;
+9. decode   — ``Service`` -> ``device-kernel`` (mode "decode") on qwen3-4b
               at full width (bf16, random weights from seed 0, 36 layers in
               3 stages): a pool of 16 sequences warmed by batched decode
               steps, the kernel route against the plain route per stage
@@ -92,14 +104,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               stage dispatch launched the decode kernel once per layer and
               the exit kernel once, and the peak device memory of the 96
               requests;
-9. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
+10. launcher — the token-loop launcher ``repro_torch.launch.serve`` with
               speculation, 24 tokens, and again with ``--ckpt`` of the same
               params written by the port's checkpoint; then its
               components again at a
               confidence target that mixes depths, with a check that the
               discarded speculative depths left the committed cache
               unwritten;
-10. report  — one ``{"kernels": [...]}`` line, then the result line.
+11. report  — one ``{"kernels": [...]}`` line, then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1629,6 +1641,70 @@ def phase_executors(params, ckpt) -> dict:
                       for name, leg in out["legs"].items()})
 
 
+TRAFFIC_OUT = "build/traffic"            # git-ignored
+
+
+def phase_traffic(ckpt) -> dict:
+    """Open-loop traffic on the card: the launcher
+    ``repro_torch.launch.traffic_replay --executor device-kernel`` in-process
+    on the checkpoint ``ckpt`` (the trained classifier), writing its obs
+    exports to ``build/traffic``, with the exit-kernel count set to 0 just
+    before it and read just after.  It measures the sustained full-depth
+    rate, drives ``steady`` (0.6x) and ``2x-overload`` (2.0x) of that rate
+    on four policy / admission legs each on the wall clock, traces the 2x
+    RTDeepIoT-reject leg and replays its recorded trace; the launcher
+    raises on any failed check (exit launches = dispatches in every run on
+    the card among them)."""
+    from repro_torch.kernels.exit_confidence.ops import exit_confidence
+    from repro_torch.launch import traffic_replay
+
+    buf = io.StringIO()
+    exit_confidence.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = traffic_replay.main(["--executor", "device-kernel", "--ckpt",
+                                   str(ckpt), "--trace-export", TRAFFIC_OUT])
+    wall = time.perf_counter() - t0
+    launches = exit_confidence.launches
+    print("\n".join(f"[traffic] {line}"
+                    for line in buf.getvalue().splitlines() if line.strip()))
+    legs = out["legs"]
+    load = [k for k in legs if k.split("/")[0] in
+            traffic_replay.LOAD_SCENARIOS and " " not in k]
+    checks = {
+        "capacity measured": out["capacity"] > 0,
+        "2x leg offers at least 2x the measured rate":
+            out["offered"]["2x-overload"] >= 2.0 * out["capacity"],
+        "eight load legs of 300 requests":
+            len(load) == 8 and all(legs[k]["n"] == 300 for k in load),
+        "exit launches = dispatches in every run": all(
+            run["exit_launches"] == run["n_dispatches"]
+            for run in [out["capacity_run"], *legs.values()]),
+        "traced leg checks": all(out["traced"]["checks"].values()),
+        "replay keeps arrival order": out["replay"]["arrival_order"],
+        "phase launches cover the runs' launches":
+            launches >= out["exit_launches"] > 0,
+    }
+    print(f"[traffic] exit-kernel launches in the phase {launches} (the "
+          f"runs' {out['exit_launches']} = their {out['n_dispatches']} "
+          f"dispatches, the rest warm-up and profiling); phase wall "
+          f"{wall:.1f} s; checks {json.dumps(checks)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"traffic phase failed: {failed}")
+    keys = ("miss_rate", "admitted_miss_rate", "rejected", "capped",
+            "accuracy", "mean_depth", "mean_latency_ms", "peak_queue_depth",
+            "n_dispatches", "exit_launches", "wall_s", "sched_s", "host_s",
+            "device_wait_s")
+    return dict(launches=launches, capacity=out["capacity"],
+                offered=out["offered"], wall_s=wall,
+                legs={k: {f: leg[f] for f in keys} for k, leg in legs.items()},
+                traced={k: out["traced"][k] for k in (
+                    "clamped", "device_time_per_request_ms", "wall_s",
+                    "untraced_wall_s")},
+                replay=out["replay"])
+
+
 def _qwen3_pool(cfg, params):
     """16 sequences warmed by batched decode steps: eight of lengths in
     [32, 240] in 256-slot caches, eight in [300, 1000] in 1024-slot caches.
@@ -2100,6 +2176,7 @@ def main() -> int:
     system = phase_system(train["confidence"], train["correct"])
     executors = phase_executors(train["params"],
                                 f"{TRAIN_OUT}/anytime_classifier.ckpt")
+    traffic = phase_traffic(f"{TRAIN_OUT}/anytime_classifier.ckpt")
     decode = phase_decode_serve()
     launcher = phase_launcher()
     mixed = phase_launcher_mixed()
@@ -2121,6 +2198,7 @@ def main() -> int:
         "launches_by_path": {"classifier serve": serve["launches"],
                              "serve_anytime --kernels":
                                  executors["launches"],
+                             "traffic": traffic["launches"],
                              "decode serve": decode["exit_launches"]},
         "classifier_path": numbers("path"),
         "qwen3_4b_head_fp32": numbers("qwen3-4b head"),
@@ -2188,7 +2266,9 @@ def main() -> int:
         "simulate": system,
         "executors": {k: executors[k] for k in (
             "stage_err", "conf_gap", "wcet_ms", "host_overhead_us",
-            "batched_wcet_ms", "legs")}}))
+            "batched_wcet_ms", "legs")},
+        "traffic": {k: traffic[k] for k in (
+            "capacity", "offered", "wall_s", "legs", "traced", "replay")}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

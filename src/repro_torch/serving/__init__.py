@@ -26,6 +26,22 @@ from repro_torch.serving.runtime import (ClosedLoopSource, EngineCore,
 from repro_torch.serving.service import (ResponseHandle, ServeSpec, Service,
                                          ServiceMetrics, ServiceResponse,
                                          SLOClass, StageExit)
+# importing the traffic subsystem registers its source keys
+# ("traffic", "replay") — see repro_torch.serving.traffic for the surface
+from repro_torch.serving.traffic import (MetricsStreamer, RequestMix,
+                                         Scenario, ServiceSnapshot,
+                                         TraceRecorder, TrafficSource,
+                                         load_trace, make_arrival_process,
+                                         record_trace, scenario_spec,
+                                         verify_replay)
+# the record codec of the durable plane (the plane itself: ROADMAP Queue A
+# item 9b)
+from repro_torch.serving.plane import Record
+# observability: per-request tracing, decision audit log, metrics registry
+# (enable with ServeSpec(trace={"enabled": True}))
+from repro_torch.serving.obs import (MetricsRegistry, RequestTrace, Span,
+                                     Tracer, chrome_trace, load_obs,
+                                     validate_chrome_trace, write_jsonl)
 
 __all__ = ["Request", "Response", "ServingEngine", "closed_loop_stream",
            "make_stage_fns", "profile_host_overhead", "profile_stages",
@@ -38,4 +54,10 @@ __all__ = ["Request", "Response", "ServingEngine", "closed_loop_stream",
            "ClosedLoopSource", "EngineCore", "OracleExecutor", "StreamSource",
            "TableRecorder", "VirtualClock", "WallClock", "simulate_runtime",
            "ResponseHandle", "ServeSpec", "Service", "ServiceMetrics",
-           "ServiceResponse", "SLOClass", "StageExit"]
+           "ServiceResponse", "SLOClass", "StageExit",
+           "MetricsStreamer", "RequestMix", "Scenario", "ServiceSnapshot",
+           "TraceRecorder", "TrafficSource", "load_trace",
+           "make_arrival_process", "record_trace", "scenario_spec",
+           "verify_replay", "Record", "MetricsRegistry", "RequestTrace",
+           "Span", "Tracer", "chrome_trace", "load_obs",
+           "validate_chrome_trace", "write_jsonl"]

@@ -41,6 +41,8 @@ source    ``closed-loop`` (§IV K-client workload), ``stream``
           ((offset, Request) list), ``live`` (``Service.submit`` queue)
 ========  =================================================================
 
+:mod:`repro_torch.serving.traffic` registers the sources ``traffic``
+(seeded open-loop arrivals) and ``replay`` (a recorded JSONL trace), and
 ``repro_torch.launch.kernel`` registers the executor ``device-kernel``
 (each stage ends in the fused exit-confidence CUDA kernel; decode mode
 runs attention through the decode-attention CUDA kernel) and
@@ -84,14 +86,12 @@ _REGISTRY: dict = {kind: {} for kind in KINDS}
 #: registry keys of the JAX package not ported yet -> their ROADMAP item
 NOT_PORTED = {
     ("executor", "device-sharded"): "Queue A item 10",
-    ("executor", "zoo-oracle"): "Queue A item 9",
-    ("executor", "zoo-device"): "Queue A item 9",
-    ("policy", "rtdeepiot-zoo"): "Queue A item 9",
-    ("policy", "rtdeepiot-adaptive"): "Queue A item 9",
-    ("source", "traffic"): "Queue A item 9",
-    ("source", "replay"): "Queue A item 9",
-    ("source", "frontdoor"): "Queue A item 9",
-    ("source", "durable"): "Queue A item 9",
+    ("executor", "zoo-oracle"): "Queue A item 9b",
+    ("executor", "zoo-device"): "Queue A item 9b",
+    ("policy", "rtdeepiot-zoo"): "Queue A item 9b",
+    ("policy", "rtdeepiot-adaptive"): "Queue A item 9b",
+    ("source", "frontdoor"): "Queue A item 9b",
+    ("source", "durable"): "Queue A item 9b",
 }
 
 

@@ -29,11 +29,13 @@ built from it owns the engine lifecycle:
   (per-class breakdown, admission/cancellation counts), JSON-exportable.
 * graceful ``drain()`` / ``close()``.
 
-A copy of ``repro.serving.service`` for the port.  What the port has not
-taken up yet raises ``NotImplementedError`` naming its ROADMAP queue item:
-the ``models``, ``tenants``, ``trace`` and ``metrics_interval`` fields and
-forecast admission (``ServeSpec.validate``), the zoo / traffic / durable
-plane resources (``Service.__init__``), and unported registry keys
+A copy of ``repro.serving.service`` for the port, with its traffic
+(metrics streaming, :mod:`repro_torch.serving.traffic`) and tracing
+(``trace``, :mod:`repro_torch.serving.obs`) plumbing.  What the port has
+not taken up yet raises ``NotImplementedError`` naming its ROADMAP queue
+item: the ``models`` and ``tenants`` fields and forecast admission
+(``ServeSpec.validate``), the zoo and durable-plane resources
+(``Service.__init__``), and unported registry keys
 (``repro_torch.serving.registry.NOT_PORTED``).
 """
 from __future__ import annotations
@@ -59,11 +61,12 @@ from repro_torch.serving.runtime.sources import RequestSource, StreamSource
 
 _SENTINEL = object()
 
-# resources of the JAX package's zoo, traffic and durable-plane subsystems
-_NOT_PORTED_RESOURCES = ("zoo", "zoo_tables", "on_metrics", "observer")
+# resources of the JAX package's zoo and durable-plane subsystems
+_NOT_PORTED_RESOURCES = ("zoo", "zoo_tables", "observer")
 
 # backpressure overflow policies for a bounded live intake (semantics in
-# the JAX package's repro.serving.traffic.control)
+# repro_torch.serving.traffic.control, which re-exports this as
+# OVERFLOW_MODES)
 _OVERFLOW_MODES = ("reject", "shed-optional")
 
 
@@ -159,11 +162,21 @@ class ServeSpec:
     policy_cost: Optional[float] = None
     charge_overhead: bool = False
     host_overhead: float = 0.0
-    # The fields below belong to subsystems not ported yet (ROADMAP Queue A
-    # item 9): validate() raises NotImplementedError when any is set.
+    # > 0: stream windowed ServiceSnapshot rows to the ``on_metrics``
+    # callback resource every `metrics_interval` service seconds
+    # (repro_torch.serving.traffic.control)
     metrics_interval: float = 0.0
+    # ``tenants`` and ``models`` belong to subsystems not ported yet (ROADMAP
+    # Queue A item 9b): validate() raises NotImplementedError when set.
     tenants: dict = dataclasses.field(default_factory=dict)
     models: dict = dataclasses.field(default_factory=dict)
+    # observability (repro_torch.serving.obs): ``{"enabled": True}``
+    # attaches a passive Tracer (per-request spans + decision audit log +
+    # metrics registry, reachable as ``service.obs`` after a run).
+    # Optional keys: ``spans``/``audit``/``metrics`` (bools, default True)
+    # gate the three recording planes; ``export``/``chrome`` are file
+    # paths written when the run finishes (JSONL / Chrome trace_event
+    # JSON).  Empty dict = tracing off, zero overhead.
     trace: dict = dataclasses.field(default_factory=dict)
 
     # -- round trip ----------------------------------------------------
@@ -201,12 +214,9 @@ class ServeSpec:
                              "('off', 'reject', 'depth_cap')")
         for field, value, item in (
                 ("admission['forecast']", self.admission.get("forecast"),
-                 "Queue A item 9"),
-                ("models", self.models, "Queue A item 9"),
-                ("tenants", self.tenants, "Queue A item 9"),
-                ("trace", self.trace, "Queue A item 9"),
-                ("metrics_interval", self.metrics_interval > 0,
-                 "Queue A item 9")):
+                 "Queue A item 9b"),
+                ("models", self.models, "Queue A item 9b"),
+                ("tenants", self.tenants, "Queue A item 9b")):
             if value:
                 raise NotImplementedError(
                     f"ServeSpec.{field} is not ported to repro_torch yet "
@@ -225,6 +235,16 @@ class ServeSpec:
             raise ValueError("metrics_interval must be >= 0")
         if self.executor == "device-kernel":
             self._validate_kernel_args()
+        if self.trace:
+            from repro_torch.serving.obs import TRACE_KEYS
+            unknown = set(self.trace) - set(TRACE_KEYS)
+            if unknown:
+                raise ValueError(f"unknown trace keys: {sorted(unknown)} "
+                                 f"(allowed: {TRACE_KEYS})")
+            for key in ("export", "chrome"):
+                v = self.trace.get(key)
+                if v is not None and not isinstance(v, str):
+                    raise ValueError(f"trace {key!r} must be a file path")
         if self.source == "live":
             bound = self.source_args.get("bound")
             if bound is not None and int(bound) < 1:
@@ -532,10 +552,11 @@ class ServiceRecorder:
     intact while resolving futures, streaming stage exits, and collecting
     the uniform per-request records ``ServiceMetrics`` is built from."""
 
-    def __init__(self, service: "Service", inner, executor):
+    def __init__(self, service: "Service", inner, executor, streamer=None):
         self.service = service
         self.inner = inner
         self.executor = executor
+        self.streamer = streamer       # MetricsStreamer (traffic.control)
         self.records: list = []
         self.core = None               # set by Service._build
 
@@ -551,6 +572,8 @@ class ServiceRecorder:
 
     # -- engine hooks ----------------------------------------------------
     def on_stage(self, task, now: float) -> None:
+        if self.streamer is not None:
+            self.streamer.tick(now)
         h = self.service._handles.get(task.tid)
         if h is None:
             return
@@ -578,7 +601,14 @@ class ServiceRecorder:
             depth_cap=task.depth_cap, tenant=tenant, request_id=rid,
             latency=latency, rejected=rejected, weight=task.weight,
             model=getattr(task, "model", None))
+        tracer = self.core.tracer if self.core is not None else None
+        if tracer is not None:
+            # injects queue_wait / host_time / device_time / decision into
+            # the row (emit-only-when-set) and closes the RequestTrace
+            tracer.finalize(task, now, rejected, t0, rec)
         self.records.append(rec)
+        if self.streamer is not None:
+            self.streamer.observe(rec, now)
         self.service._slo_names.pop(task.tid, None)
         h = self.service._handles.pop(task.tid, None)
         if h is not None:
@@ -832,11 +862,17 @@ class Service:
         self._thread: Optional[threading.Thread] = None
         self._buffer: list = []         # virtual-clock live submissions
         self._last: Optional[ServiceMetrics] = None
+        self.snapshots: list = []       # streamed metrics of the last run
+        self.obs = None                 # Tracer of the latest build
+        # intake-side audit rows (bound rejects, sheds) raised before or
+        # outside the engine loop — drained into the tracer at build time
+        # and again when the run finishes
+        self._pending_audit: list = []
         for key in _NOT_PORTED_RESOURCES:
             if key in resources:
                 raise NotImplementedError(
                     f"resource {key!r} belongs to a subsystem not ported to "
-                    "repro_torch yet (ROADMAP Queue A item 9)")
+                    "repro_torch yet (ROADMAP Queue A item 9b)")
 
     @classmethod
     def from_spec(cls, spec: ServeSpec, resources: dict = None,
@@ -930,7 +966,20 @@ class Service:
                                   self.resources["correct_table"])
         else:
             inner = None
-        recorder = ServiceRecorder(self, inner, executor)
+        streamer = None
+        if spec.metrics_interval > 0:
+            # local import: the traffic subsystem layers on top of Service
+            from repro_torch.serving.traffic.control import MetricsStreamer
+            streamer = MetricsStreamer(spec.metrics_interval,
+                                       self.resources.get("on_metrics"))
+        recorder = ServiceRecorder(self, inner, executor, streamer=streamer)
+        tracer = None
+        if spec.trace and spec.trace.get("enabled", True):
+            from repro_torch.serving.obs import Tracer
+            tracer = Tracer.from_config(spec.trace)
+            tracer.time_model = tm
+            tracer.ingest_pending(self._pending_audit)
+        self.obs = tracer
         pol = as_batch_policy(policy, tm, max_batch=max_batch,
                               charge_formation=charge_formation,
                               dp=getattr(executor, "dp", 1))
@@ -938,8 +987,13 @@ class Service:
                           admission=admission,
                           pipeline_depth=spec.pipeline_depth,
                           dispatch_overhead=spec.dispatch_overhead,
-                          policy_cost=spec.policy_cost, max_batch=eff_mb)
+                          policy_cost=spec.policy_cost, max_batch=eff_mb,
+                          tracer=tracer)
         recorder.core = core
+        if streamer is not None:
+            streamer.bind(core, source,
+                          inner if isinstance(inner, TableRecorder) else None,
+                          service=self)
         # telemetry handles on the latest build (policy.sched_time, custom
         # executor counters, ...)
         self.policy, self.executor, self.clock = policy, executor, clock
@@ -1032,6 +1086,8 @@ class Service:
                 # compile before the clock starts (deadlines are ms-scale)
                 warmup(min(stream, key=lambda p: p[0])[1].inputs)
         built.core.run()
+        self._finish_streamer(built)
+        self._finish_obs(built)
         self._last = built.recorder.result(built.core)
         self._reset_run_counters()
         return self._last
@@ -1112,11 +1168,19 @@ class Service:
         handle = ResponseHandle(self, request)
         bound = self.spec.source_args.get("bound")
         if bound is not None and self._intake_depth() >= int(bound):
+            t_sub = 0.0 if at is None else float(at)
+            detail = {"bound": int(bound),
+                      "intake_depth": self._intake_depth()}
             if self.spec.source_args.get("overflow",
                                          "reject") == "reject":
-                return self._reject_overflow(handle, request, cls)
+                return self._reject_overflow(handle, request, cls,
+                                             rule="intake-bound",
+                                             detail=detail, t=t_sub)
             request._shed = True
             self._n_shed += 1
+            self._audit_intake("intake-shed", t_sub, detail, request,
+                               cls.name if cls is not None else None,
+                               kind="shed")
         request._handle = handle
         self._submitted.add(handle)
         if self._is_realtime():
@@ -1133,18 +1197,46 @@ class Service:
         return self._ensure_live().source.qsize()
 
     def _reject_overflow(self, handle: ResponseHandle, request,
-                         cls: Optional[SLOClass]) -> ResponseHandle:
+                         cls: Optional[SLOClass], *,
+                         rule: str = "intake-bound", detail: dict = None,
+                         t: float = 0.0) -> ResponseHandle:
         """Bounded-intake fail-fast: resolve the handle rejected without
-        the request ever reaching the engine."""
+        the request ever reaching the engine.  ``rule``/``detail`` name
+        the decision for the obs audit log."""
         self._n_bp_rejected += 1
         name = cls.name if cls is not None else None
         if name is not None:
             self._bp_per_class[name] = self._bp_per_class.get(name, 0) + 1
+        self._audit_intake(rule, t, detail, request, name, kind="reject")
         handle._resolve(ServiceResponse(
             sample=request.sample, prediction=None, confidence=0.0,
             depth=0, missed=True, latency=0.0, deadline=0.0, slo=name,
             rejected=True))
         return handle
+
+    def _audit_intake(self, rule: str, t: float, detail: Optional[dict],
+                      request, slo: Optional[str], *, kind: str) -> None:
+        """Record an intake-side scheduler decision (reject/shed before
+        the engine ever saw the request) in the obs audit log.  Routed
+        straight into the live tracer when one is running, buffered in
+        ``_pending_audit`` otherwise (drained at build / run finish)."""
+        if not (self.spec.trace and self.spec.trace.get("enabled", True)):
+            return
+        row = {"rule": rule, "t": float(t), "detail": detail or {},
+               "kind": kind}
+        rid = getattr(request, "request_id", None)
+        if rid is not None:
+            row["request_id"] = rid
+        tenant = getattr(request, "tenant", None)
+        if tenant is not None:
+            row["tenant"] = tenant
+        if slo is not None:
+            row["slo"] = slo
+        tracer = self._live.core.tracer if self._live is not None else None
+        if tracer is not None:
+            tracer.ingest_pending([row])
+        else:
+            self._pending_audit.append(row)
 
     def _is_realtime(self) -> bool:
         """Whether live submissions go to a background engine (wall clock)
@@ -1177,6 +1269,8 @@ class Service:
             if err is not None:
                 raise RuntimeError("serving engine failed while live") \
                     from err
+            self._finish_streamer(live)
+            self._finish_obs(live)
             self._last = live.recorder.result(live.core)
             self._reset_run_counters()
             return self._last
@@ -1191,10 +1285,24 @@ class Service:
                 for h in list(self._submitted):
                     h._fail(exc)
                 raise
+            self._finish_streamer(built)
+            self._finish_obs(built)
             self._last = built.recorder.result(built.core)
             self._reset_run_counters()
             return self._last
         return self._last if self._last is not None else self.metrics()
+
+    def _finish_streamer(self, built: _Built) -> None:
+        streamer = built.recorder.streamer
+        if streamer is not None:
+            streamer.flush(built.core.makespan)
+            self.snapshots = list(streamer.snapshots)
+
+    def _finish_obs(self, built: _Built) -> None:
+        tracer = built.core.tracer
+        if tracer is not None:
+            tracer.ingest_pending(self._pending_audit)
+            tracer.close()          # writes configured export files
 
     def _reset_run_counters(self) -> None:
         """Fresh-per-run semantics for the intake/backpressure counters on

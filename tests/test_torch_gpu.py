@@ -137,3 +137,36 @@ def test_plain_executor_stages_match_on_card(cuda_device):
                          torch.Generator().manual_seed(0),
                          device=cuda_device)
     assert chip_smoke.check_executor_stages(params, verbose=False) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_traffic_leg_on_card_launches_exit_once_per_dispatch(cuda_device,
+                                                             tmp_path):
+    """A 40-request open-loop run on ``device-kernel`` on the wall clock
+    (seed-0 params, 2x the capacity measured first, RTDeepIoT behind
+    reject admission), traced: exit launches = dispatches = device
+    windows, and the traced leg's checks (a trace a response, ordered
+    spans, the time split, the exports read back, a valid Chrome
+    document)."""
+    _chip_smoke()                # puts the checkout's src/ on the path
+    from repro_torch.configs import get_config
+    from repro_torch.launch import traffic_replay
+    from repro_torch.models import init_params
+    from repro_torch.serving.traffic import SCENARIOS
+    params = init_params(get_config("anytime-classifier"),
+                         torch.Generator().manual_seed(0),
+                         device=cuda_device)
+    ctx = traffic_replay.card_context(params, n_runs=5)
+    cap = traffic_replay.measure_capacity(ctx, 48)
+    src = SCENARIOS["2x-overload"].source_args(capacity=cap["rate"],
+                                               n_requests=40, seed=0)
+    export, chrome = str(tmp_path / "obs.jsonl"), str(tmp_path / "c.json")
+    svc, res, leg = traffic_replay.run_leg(
+        ctx, "rtdeepiot", traffic_replay.RTDEEPIOT_ARGS, {"mode": "reject"},
+        source_args=src, trace={"enabled": True, "export": export,
+                                "chrome": chrome})
+    assert svc.spec.clock == "wall" and leg["n"] == 40
+    assert leg["exit_launches"] == leg["n_dispatches"]
+    assert cap["exit_launches"] == cap["n_dispatches"] > 0
+    traced = traffic_replay.check_traced(svc, res, export, chrome)
+    assert all(traced["checks"].values()), traced

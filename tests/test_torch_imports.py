@@ -43,7 +43,9 @@ def test_port_imports_without_jax():
             "repro_torch.training.checkpoint, repro_torch.training.multiexit, "
             "repro_torch.serving.batch.engine, "
             "repro_torch.serving.batch.simulator, "
-            "repro_torch.launch.serve_anytime; "
+            "repro_torch.launch.serve_anytime, "
+            "repro_torch.launch.traffic_replay, repro_torch.serving.obs, "
+            "repro_torch.serving.traffic, repro_torch.serving.plane; "
             "assert 'msgpack' not in sys.modules; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")

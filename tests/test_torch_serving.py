@@ -219,11 +219,9 @@ def test_live_wall_clock_service_matches_jax():
 @pytest.mark.parametrize("field,value", [
     ("models", {"a": {"stage_times": [0.01]}}),
     ("tenants", {"t": {"weight": 2.0}}),
-    ("trace", {"enabled": True}),
-    ("metrics_interval", 0.5),
     ("admission", {"mode": "reject",
                    "forecast": {"process": {"kind": "poisson"}}}),
-    ("source", "traffic"), ("source", "replay"), ("source", "frontdoor"),
+    ("source", "frontdoor"),
     ("executor", "device-sharded"), ("executor", "zoo-oracle"),
     ("source", "durable"),
 ])
@@ -232,6 +230,23 @@ def test_unported_spec_raises(field, value):
     spec = dataclasses.replace(spec, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         spec.validate()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("trace", {"enabled": True}),
+    ("metrics_interval", 0.5),
+    ("source", "traffic"), ("source", "replay"),
+])
+def test_ported_traffic_and_obs_spec_validates(field, value):
+    """The traffic subsystem's sources, metrics streaming and the request
+    tracer resolve in the port (their parity: tests/test_torch_traffic.py
+    and tests/test_torch_obs.py)."""
+    spec = _stream_spec(ServeSpec, "device-kernel", {})
+    spec = dataclasses.replace(spec, **{field: value})
+    assert spec.validate() is spec
+    if field == "source":
+        assert value in available("source")
+        assert ("source", value) not in NOT_PORTED
 
 
 @pytest.mark.parametrize("executor", ("device-single", "device-batched"))
@@ -244,12 +259,28 @@ def test_ported_executor_spec_validates(executor):
     assert ("executor", executor) not in NOT_PORTED
 
 
-@pytest.mark.parametrize("resource", ("zoo", "zoo_tables", "on_metrics",
-                                      "observer"))
+@pytest.mark.parametrize("resource", ("zoo", "zoo_tables", "observer"))
 def test_unported_resource_raises(resource):
     spec = _stream_spec(ServeSpec, "device-kernel", {})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
         Service.from_spec(spec, **{resource: object()})
+
+
+def test_on_metrics_resource_receives_snapshots():
+    """``on_metrics`` (refused before the traffic subsystem was ported)
+    now receives the streamed snapshots."""
+    conf = np.full((20, 3), 0.8)
+    correct = conf > 0.5
+    spec = ServeSpec(policy="edf", metrics_interval=0.05,
+                     batching={"mode": "none", "stage_times": [0.01] * 3},
+                     source_args={"n_clients": 2, "d_lo": 0.05, "d_hi": 0.2,
+                                  "n_requests": 10})
+    got = []
+    svc = Service.from_spec(spec, conf_table=conf, correct_table=correct,
+                            on_metrics=got.append)
+    res = svc.run()
+    assert got and got == svc.snapshots
+    assert sum(s.n for s in got) == res.n_requests == 10
 
 
 def test_unknown_kernel_arg_rejected():
